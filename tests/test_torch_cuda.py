@@ -1,0 +1,198 @@
+"""tpu_pillars_torch's CUDA kernels against their plain PyTorch versions, on
+the card. Every test here is marked ``cuda`` and skips where
+``torch.cuda.is_available()`` is false. The file imports neither JAX nor the
+JAX package, so it also runs on a machine that has neither:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+K1 emit and K3 scatter are held bit for bit; K2 fused PFN to atol 1e-5,
+rtol 1e-5 (both sides round the same f32 operations in the same order; the
+kernel is built without fused multiply-adds); K4 overlap equal except pairs
+whose IoU lies within 1e-4 of the threshold; the detector's packed output
+on the card against the same detector on the CPU at the tolerance of
+tests/test_detector_e2e.py::test_jitted_pipeline_matches_cpu_reference."""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_pillars_torch import _build
+from tpu_pillars_torch import config as tconfig
+from tpu_pillars_torch.detector import Detector
+from tpu_pillars_torch.models.pointpillars import PointPillars
+from tpu_pillars_torch.ops import bev, emit, fused_pfn, iou, nms_overlap
+from tpu_pillars_torch.ops.voxelize import sort_points_by_pillar
+
+pytestmark = pytest.mark.cuda
+
+CFG = tconfig.tiny_config()
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _cloud(rng, ns, cfg=CFG, f=4, margin=2.0):
+    pts = np.full((len(ns), cfg.max_points, f), 1e6, dtype=np.float32)
+    for i, n in enumerate(ns):
+        pts[i, :n, 0] = rng.uniform(cfg.x_min - margin, cfg.x_max + margin, n)
+        pts[i, :n, 1] = rng.uniform(cfg.y_min - margin, cfg.y_max + margin, n)
+        pts[i, :n, 2] = rng.uniform(cfg.z_min - 0.5, cfg.z_max + 0.5, n)
+        pts[i, :n, 3:] = rng.uniform(0, 1, (n, f - 3))
+    return pts, np.asarray(ns, np.int32)
+
+
+def _one_cell(rng, n_dense=2500):
+    """One cell holding more points than two kernel chunks."""
+    pts, ns = _cloud(rng, [n_dense, 1200])
+    pts[0, :n_dense, 0] = 3.2 + rng.uniform(0, 0.2, n_dense)
+    pts[0, :n_dense, 1] = -1.4 + rng.uniform(0, 0.2, n_dense)
+    return pts, ns
+
+
+CASES = {
+    "random": (CFG, lambda rng: _cloud(rng, [3000, 4096, 1, 0])),
+    "one_cell": (CFG, _one_cell),
+    "budget": (tconfig.tiny_config(max_pillars=64),
+               lambda rng: _cloud(rng, [4096, 4096])),
+    "empty": (CFG, lambda rng: _cloud(rng, [0, 0])),
+    "multisweep_f5": (
+        tconfig.multisweep_config(num_sweeps=3, max_points=4096,
+                                  max_pillars=2000, max_points_per_pillar=16),
+        lambda rng: _cloud(rng, [3500, 900], cfg=tconfig.multisweep_config(
+            max_points=4096), f=5, margin=-60.0)),
+}
+
+
+def _sorted_centered(case, dev):
+    cfg, make = CASES[case]
+    pts, ns = make(np.random.default_rng(0))
+    gid, p = sort_points_by_pillar(torch.from_numpy(pts).to(dev),
+                                   torch.from_numpy(ns).to(dev), cfg)
+    return cfg, gid, fused_pfn.center_points(gid, p, cfg)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_emit_kernel_bit_equal(dev, case):
+    cfg, gid, pts = _sorted_centered(case, dev)
+    args = (gid, pts, cfg.max_points_per_pillar, cfg.max_pillars,
+            cfg.grid_h * cfg.grid_w)
+    before = _build.LAUNCHES["emit"]
+    table, meta = emit.emit_table(*args)
+    assert _build.LAUNCHES["emit"] == before + 1
+    want_t, want_m = emit.emit_table_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(table, want_t)
+    assert torch.equal(meta, want_m)
+    cpu_t, cpu_m = emit.emit_table(gid.cpu(), pts.cpu(), *args[2:])
+    assert torch.equal(table.cpu(), cpu_t) and torch.equal(meta.cpu(), cpu_m)
+
+
+@pytest.mark.parametrize("case", ["random", "one_cell", "multisweep_f5"])
+def test_fused_pfn_kernel_matches_plain(dev, case):
+    cfg, gid, pts = _sorted_centered(case, dev)
+    table, meta = emit.emit_table(gid, pts, cfg.max_points_per_pillar,
+                                  cfg.max_pillars, cfg.grid_h * cfg.grid_w)
+    rng = np.random.default_rng(1)
+    D, C = cfg.num_decorated_features, cfg.pfn_channels
+    w = torch.from_numpy((rng.normal(size=(D, C)) * 0.3).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(C,)).astype(np.float32))
+    w_eff, w_dec = fused_pfn.fold_decoration(w.to(dev), b.to(dev), cfg)
+    got, pid, cnt = fused_pfn.pfn_from_table(table, meta, w_eff, w_dec, cfg)
+    want, want_pid, want_cnt = fused_pfn.pfn_from_table_plain(
+        table, meta, w_eff, w_dec, cfg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert torch.equal(pid, want_pid) and torch.equal(cnt, want_cnt)
+
+
+def test_scatter_kernel_bit_equal(dev):
+    cfg, gid, pts = _sorted_centered("random", dev)
+    table, meta = emit.emit_table(gid, pts, cfg.max_points_per_pillar,
+                                  cfg.max_pillars, cfg.grid_h * cfg.grid_w)
+    cnt = meta.reshape(-1, 8, cfg.max_pillars)[:, 0]
+    pid = meta.reshape(-1, 8, cfg.max_pillars)[:, 1].to(torch.int32)
+    feats = torch.randn((cnt.shape[0], cfg.max_pillars, 64), device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    mask = cnt > 0
+    got = bev.scatter_to_bev(feats, pid, mask, cfg)
+    want = bev.scatter_to_bev_plain(feats, pid, mask, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _boxes(rng, batch, n, span):
+    b = np.zeros((batch, n, 7), dtype=np.float32)
+    b[..., 0:2] = rng.uniform(-span, span, (batch, n, 2))
+    b[..., 2] = rng.uniform(-1, 1, (batch, n))
+    b[..., 3] = rng.uniform(0.5, 3.0, (batch, n))
+    b[..., 4] = rng.uniform(0.5, 6.0, (batch, n))
+    b[..., 5] = rng.uniform(0.5, 3.0, (batch, n))
+    b[..., 6] = rng.uniform(-np.pi, np.pi, (batch, n))
+    return b
+
+
+@pytest.mark.parametrize("k", [128, 200, 1024])
+def test_overlap_kernel_matches_plain(dev, k):
+    boxes = torch.from_numpy(_boxes(np.random.default_rng(k), 3, k,
+                                    span=8.0 + k / 64)).to(dev)
+    got = nms_overlap.overlap_matrix(boxes, 0.2)
+    want = nms_overlap.overlap_matrix_plain(boxes, 0.2)
+    torch.cuda.synchronize()
+    assert want.any()
+    bad = (got != want).nonzero().cpu()
+    if len(bad):
+        # the referee: the plain IoU of each disagreeing pair, in float64,
+        # must sit at the threshold
+        b, j, i = bad.unbind(1)
+        pair = iou.rotated_iou_bev(boxes[b, j].double().cpu(),
+                                   boxes[b, i].double().cpu()).diagonal()
+        assert (pair - 0.2).abs().max() < 1e-4
+
+
+def test_wrappers_refuse_wrong_inputs(dev):
+    gid = torch.zeros((1, 8), dtype=torch.int64, device=dev)
+    pts = torch.zeros((1, 8, 4), device=dev)
+    with pytest.raises(TypeError):
+        emit.emit_table(gid, pts, 4, 4, 16)
+    with pytest.raises(ValueError):
+        nms_overlap.overlap_matrix(torch.zeros((4, 7), device=dev), 0.2)
+
+
+def _random_state_dict(cfg, seed):
+    """Random serving weights for PointPillars(cfg), drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, t in PointPillars(cfg).state_dict().items():
+        shape = tuple(t.shape)
+        if name.endswith("running_var"):
+            x = np.abs(rng.normal(1.0, 0.1, shape)) + 0.1
+        elif name.endswith(".weight") and len(shape) == 1:
+            x = rng.normal(1.0, 0.1, shape)
+        elif len(shape) >= 2:
+            fan_in = (shape[0] if name.startswith(("pfn", "head"))
+                      else int(np.prod(shape[1:])))
+            x = rng.normal(0.0, 1.0 / np.sqrt(fan_in), shape)
+        else:
+            x = rng.normal(0.0, 0.1, shape)
+        sd[name] = torch.from_numpy(x.astype(np.float32))
+    return sd
+
+
+def test_detector_on_card_matches_cpu(dev):
+    sd = _random_state_dict(CFG, 5)
+    pts, ns = _cloud(np.random.default_rng(2), [3000, 1500])
+    _build.reset_launches()
+    got = Detector(CFG, sd).predict_packed_batch(pts, ns).cpu().numpy()
+    assert all(n == 1 for n in _build.LAUNCHES.values()), _build.LAUNCHES
+    want = Detector(CFG, sd, device="cpu").predict_packed_batch(
+        pts, ns).numpy()
+    np.testing.assert_array_equal(got[..., 9], want[..., 9])
+    np.testing.assert_array_equal(got[..., 8], want[..., 8])
+    np.testing.assert_allclose(got[..., 7], want[..., 7], atol=1e-4)
+    np.testing.assert_allclose(got[..., :6], want[..., :6], atol=5e-3)
+    dyaw = (got[..., 6] - want[..., 6] + np.pi) % (2 * np.pi) - np.pi
+    assert np.abs(dyaw).max() < 5e-3

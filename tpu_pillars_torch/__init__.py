@@ -1,0 +1,19 @@
+"""tpu_pillars_torch — the PyTorch/CUDA port of tpu_pillars.
+
+A PointPillars lidar detector served on an NVIDIA H100: raw point cloud ->
+``List[Box3D]`` through hand-written CUDA kernels (``csrc/``) for the emit,
+fused PFN, BEV scatter and NMS overlap steps. The JAX package ``tpu_pillars``
+stays the reference; this package imports nothing of it.
+
+Entry point: ``Detector`` (``Detector.from_checkpoint`` loads the JAX
+package's flax checkpoints). Entry points run on the card unless the caller
+passes ``device="cpu"``.
+"""
+
+from tpu_pillars_torch.config import (
+    ClassSpec, PillarsConfig, car_only_config, multisweep_config, tiny_config,
+)
+from tpu_pillars_torch.detector import Detector, packed_to_boxes
+
+__all__ = ["ClassSpec", "PillarsConfig", "car_only_config",
+           "multisweep_config", "tiny_config", "Detector", "packed_to_boxes"]

@@ -1,0 +1,112 @@
+"""K1 emit: sorted points -> flat pillar table + per-pillar meta.
+
+Port of ``tpu_pillars/ops/emit_pallas.py`` (``emit_table_flat``). Inputs are
+one sample's points sorted by pillar id (``ops.voxelize.
+sort_points_by_pillar``), outputs the flat layout the fused PFN consumes:
+
+  table (B*P, n_pts*F) f32 — row ``b*P + r`` holds pillar r's kept points,
+        point ``rank`` at columns ``rank*F + f``; unfilled slots are zero;
+  meta  (B*8, P) f32 — rows per sample: 0 kept-point count, 1 pillar id,
+        2-4 kept-point x/y/z sums, 5-7 zero.
+
+Pillars are the first ``p_budget`` by id, points the first ``n_pts`` of each
+pillar (canonical spec rules 3-4, ``ops/voxelize.py``). Rows past the last
+kept pillar are zero. Unlike the TPU kernel the table carries no ``whalf``
+row padding and no 128-lane padding.
+
+On a CUDA tensor :func:`emit_table` launches the hand-written kernel
+(``csrc/emit.cu``); on a CPU tensor it runs :func:`emit_table_plain`. The
+two agree bit for bit: the sums are taken in rank order on both sides.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_pillars_torch import _build
+
+META_ROWS = 8
+
+
+def _check(gid, pts):
+    if gid.dtype != torch.int32 or pts.dtype != torch.float32:
+        raise TypeError(f"emit_table wants int32 gid and float32 points, "
+                        f"got {gid.dtype} and {pts.dtype}")
+    if gid.dim() != 2 or pts.dim() != 3 or pts.shape[:2] != gid.shape:
+        raise ValueError(f"emit_table wants gid (B, M) and points (B, M, F); "
+                         f"got {tuple(gid.shape)} and {tuple(pts.shape)}")
+    if gid.device != pts.device:
+        raise ValueError("gid and points lie on different devices")
+
+
+def emit_table(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
+               n_pts: int, p_budget: int, hw: int):
+    """gid_sorted (B, M) int32 ascending per sample (``hw`` marks invalid
+    points), pts_sorted (B, M, F) f32 -> (table, meta), see module
+    docstring."""
+    _check(gid_sorted, pts_sorted)
+    if gid_sorted.device.type != "cuda":
+        return emit_table_plain(gid_sorted, pts_sorted, n_pts, p_budget, hw)
+    B, M, F = pts_sorted.shape
+    gid = gid_sorted.contiguous()
+    pts = pts_sorted.contiguous()
+    table = torch.zeros((B * p_budget, n_pts * F), dtype=torch.float32,
+                        device=gid.device)
+    meta = torch.zeros((B * META_ROWS, p_budget), dtype=torch.float32,
+                       device=gid.device)
+    fn = _build.function("emit", "emit_table", "ppppiiiiii")
+    err = fn(gid.data_ptr(), pts.data_ptr(), table.data_ptr(),
+             meta.data_ptr(), B, M, F, n_pts, p_budget, hw,
+             _build.stream_ptr(gid))
+    _build.check(err, "emit_table")
+    _build.LAUNCHES["emit"] += 1
+    return table, meta
+
+
+def emit_table_plain(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
+                     n_pts: int, p_budget: int, hw: int):
+    """Plain PyTorch version of :func:`emit_table` (same outputs, bit for
+    bit): segment structure by cumulative sums/maxima, stores by masked
+    index assignment, sums in rank order."""
+    _check(gid_sorted, pts_sorted)
+    B, M, F = pts_sorted.shape
+    dev = gid_sorted.device
+    gid = gid_sorted.long()
+    idx = torch.arange(M, device=dev).expand(B, M)
+    valid = gid < hw
+    prev = torch.cat([torch.full((B, 1), -1, device=dev, dtype=gid.dtype),
+                      gid[:, :-1]], dim=1)
+    nxt = torch.cat([gid[:, 1:],
+                     torch.full((B, 1), hw, device=dev, dtype=gid.dtype)],
+                    dim=1)
+    new_seg = gid != prev
+    first = valid & new_seg
+    ordinal = torch.cumsum(first.long(), dim=1) - 1
+    seg_start = torch.cummax(torch.where(new_seg, idx, -1), dim=1).values
+    rank = idx - seg_start
+    in_budget = valid & (ordinal < p_budget)
+    row = torch.arange(B, device=dev)[:, None] * p_budget + ordinal
+
+    table = torch.zeros((B * p_budget * n_pts, F), dtype=torch.float32,
+                        device=dev)
+    keep = in_budget & (rank < n_pts)
+    table[(row * n_pts + rank)[keep]] = pts_sorted[keep]
+    table = table.reshape(B * p_budget, n_pts * F)
+
+    meta = torch.zeros((B, META_ROWS, p_budget), dtype=torch.float32,
+                       device=dev)
+    last = in_budget & (nxt != gid)
+    b_of = torch.arange(B, device=dev)[:, None].expand(B, M)[last]
+    o_of = ordinal[last]
+    meta[b_of, 0, o_of] = torch.clamp(rank[last] + 1, max=n_pts).float()
+    meta[b_of, 1, o_of] = gid[last].float()
+
+    # kept x/y/z sums in rank order (bit-equal to the kernel's per-thread
+    # loop: adding an exact 0.0 for slots past the count changes nothing)
+    cnt = meta[:, 0].reshape(B * p_budget, 1)
+    rows = table.reshape(B * p_budget, n_pts, F)
+    sums = torch.zeros((B * p_budget, 3), dtype=torch.float32, device=dev)
+    for j in range(n_pts):
+        sums = sums + torch.where(j < cnt, rows[:, j, :3], 0.0)
+    meta[:, 2:5] = sums.reshape(B, p_budget, 3).transpose(1, 2)
+    return table, meta.reshape(B * META_ROWS, p_budget)

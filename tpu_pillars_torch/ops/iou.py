@@ -1,0 +1,135 @@
+"""Exact rotated-box BEV IoU, plain PyTorch — port of
+``tpu_pillars/ops/iou.py``.
+
+Sort-free and gather-free, via Green's theorem: for convex polygons
+
+    area(A ^ B) = sum_{edges e of A} int_{e ^ B} x dy
+                + sum_{edges e of B} int_{e ^ A} x dy
+
+Each edge clips against the other quad's 4 half-planes in closed form (a
+parameter interval [t_lo, t_hi] carried as homogeneous p/q pairs), then
+contributes a closed-form line integral. The arithmetic, its order and its
+scale-relative degeneracy thresholds are the JAX package's, op for op: the
+NMS overlap kernel (``csrc/nms_overlap.cu``) repeats them with no fused
+multiply-adds, so kernel and plain version round alike.
+
+Boxes are packed ``[x, y, z, w, l, h, yaw]`` (z/h are ignored here); every
+function broadcasts over leading dims.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-6
+
+
+def corners_bev(boxes):
+    """(..., 7) -> (..., 4, 2) BEV footprint corners, CCW from front-left."""
+    x, y = boxes[..., 0], boxes[..., 1]
+    w, l, yaw = boxes[..., 3], boxes[..., 4], boxes[..., 6]
+    lx = torch.stack([l / 2, -l / 2, -l / 2, l / 2], dim=-1)
+    ly = torch.stack([w / 2, w / 2, -w / 2, -w / 2], dim=-1)
+    c, s = torch.cos(yaw)[..., None], torch.sin(yaw)[..., None]
+    gx = x[..., None] + c * lx - s * ly
+    gy = y[..., None] + s * lx + c * ly
+    return torch.stack([gx, gy], dim=-1)
+
+
+def _fmin2(p1, q1, p2, q2):
+    """min(p1/q1, p2/q2) with q > 0, division-free."""
+    take1 = p1 * q2 < p2 * q1
+    return torch.where(take1, p1, p2), torch.where(take1, q1, q2)
+
+
+def _fmax2(p1, q1, p2, q2):
+    take1 = p1 * q2 > p2 * q1
+    return torch.where(take1, p1, p2), torch.where(take1, q1, q2)
+
+
+def _half_edge_integral(px, py, cx, cy):
+    """Sum over the `p` quad's edges of int x dy restricted to the inside of
+    the convex CCW `c` quad. Arguments are length-4 lists of broadcastable
+    tensors (one per corner)."""
+    big = 1e9
+    nx = [cy[(k + 1) % 4] - cy[k] for k in range(4)]
+    ny = [cx[k] - cx[(k + 1) % 4] for k in range(4)]
+    cc = [nx[k] * cx[k] + ny[k] * cy[k] for k in range(4)]
+    # scale-relative degeneracy thresholds (see the JAX package's iou.py):
+    # |nd| <= rel * |d||n| (L1 norms) counts as parallel
+    rel = 3e-4
+    nlen = [torch.abs(nx[k]) + torch.abs(ny[k]) for k in range(4)]
+
+    total = None
+    for e in range(4):
+        x1, y1 = px[e], py[e]
+        dx = px[(e + 1) % 4] - x1
+        dy = py[(e + 1) % 4] - y1
+        dlen = torch.abs(dx) + torch.abs(dy)
+        plen = torch.abs(x1) + torch.abs(y1)
+        one = torch.ones_like(x1)
+        ph, qh = one, one                      # t_hi starts at the cap 1
+        pl, ql = torch.zeros_like(x1), one     # t_lo starts at the floor 0
+        for k in range(4):
+            f0 = x1 * nx[k] + y1 * ny[k] - cc[k]
+            nd = dx * nx[k] + dy * ny[k]
+            parallel = torch.abs(nd) <= rel * (dlen * nlen[k]) + _EPS
+            violated = parallel & (
+                f0 > rel * (plen * nlen[k] + torch.abs(cc[k])) + _EPS)
+            exiting = ~parallel & (nd > 0)
+            entering = ~parallel & (nd < 0)
+            hp = torch.where(exiting, -f0,
+                             torch.where(violated, -big, big))
+            hq = torch.where(exiting, nd, one)
+            lp = torch.where(entering, f0,
+                             torch.where(violated, big, -big))
+            lq = torch.where(entering, -nd, one)
+            ph, qh = _fmin2(ph, qh, hp, hq)
+            pl, ql = _fmax2(pl, ql, lp, lq)
+        cross = ph * ql - pl * qh
+        mixed = ph * ql + pl * qh
+        inv = 1.0 / (qh * ql)
+        contrib = dy * cross * inv * (x1 + 0.5 * dx * mixed * inv)
+        contrib = torch.where(cross > 0, contrib, 0.0)
+        total = contrib if total is None else total + contrib
+    return total
+
+
+def convex_quad_intersect_area(qa, qb):
+    """Intersection area of CCW quads qa, qb: (..., 4, 2) -> (...,), with
+    broadcasting over the leading dims. Coordinates are re-centred per pair
+    before integrating (f32 cancellation scales with |coordinate|)."""
+    ax = [qa[..., e, 0] for e in range(4)]
+    ay = [qa[..., e, 1] for e in range(4)]
+    bx = [qb[..., e, 0] for e in range(4)]
+    by = [qb[..., e, 1] for e in range(4)]
+    midx = 0.125 * (ax[0] + ax[1] + ax[2] + ax[3]
+                    + bx[0] + bx[1] + bx[2] + bx[3])
+    midy = 0.125 * (ay[0] + ay[1] + ay[2] + ay[3]
+                    + by[0] + by[1] + by[2] + by[3])
+    ax = [x - midx for x in ax]
+    ay = [y - midy for y in ay]
+    bx = [x - midx for x in bx]
+    by = [y - midy for y in by]
+    area = (_half_edge_integral(ax, ay, bx, by)
+            + _half_edge_integral(bx, by, ax, ay))
+    return torch.clamp(area, min=0.0)
+
+
+def rotated_iou_bev(boxes1, boxes2):
+    """Pairwise rotated BEV IoU. boxes1 (N, 7), boxes2 (M, 7) -> (N, M)."""
+    c1 = corners_bev(boxes1)[:, None]
+    c2 = corners_bev(boxes2)[None, :]
+    inter = convex_quad_intersect_area(c1, c2)
+    a1 = (boxes1[:, 3] * boxes1[:, 4])[:, None]
+    a2 = (boxes2[:, 3] * boxes2[:, 4])[None, :]
+    # exact gate: footprints cannot meet beyond the sum of circumradii
+    dx = boxes1[:, None, 0] - boxes2[None, :, 0]
+    dy = boxes1[:, None, 1] - boxes2[None, :, 1]
+    r1 = 0.5 * torch.sqrt(boxes1[:, 3] ** 2 + boxes1[:, 4] ** 2)
+    r2 = 0.5 * torch.sqrt(boxes2[:, 3] ** 2 + boxes2[:, 4] ** 2)
+    rr = r1[:, None] + r2[None, :]
+    inter = torch.where(dx * dx + dy * dy > rr * rr, 0.0, inter)
+    inter = torch.minimum(inter, torch.minimum(a1, a2))
+    union = torch.clamp(a1 + a2 - inter, min=_EPS)
+    return torch.clamp(inter / union, 0.0, 1.0)

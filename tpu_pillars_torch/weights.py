@@ -1,0 +1,168 @@
+"""Carry weights across from the JAX package: flax checkpoints -> the port's
+state dict, with no msgpack package and no JAX.
+
+A flax checkpoint (``flax.serialization.to_bytes``) is a msgpack map of
+maps whose leaves are msgpack ext type 1: a nested msgpack array
+``(shape, dtype name, raw bytes)``. :func:`load_flax_msgpack` reads that
+with a small stdlib-only decoder; :func:`params_from_flax` maps the numpy
+tree (the same tree JAX's ``variables`` hold) onto the port's modules.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import struct
+
+import numpy as np
+import torch
+
+from tpu_pillars_torch.config import PillarsConfig
+
+_EXT_NDARRAY = 1
+
+
+class _Reader:
+    """Minimal msgpack decoder for flax checkpoints: ints, str, bin, arrays,
+    maps and ext (ext type 1 decodes to a numpy array). Any other type byte
+    is refused."""
+
+    def __init__(self, data: bytes):
+        self.data = data
+        self.pos = 0
+
+    def _take(self, n: int) -> bytes:
+        if self.pos + n > len(self.data):
+            raise ValueError("truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def _unpack(self, fmt: str):
+        return struct.unpack(">" + fmt, self._take(struct.calcsize(fmt)))[0]
+
+    def read(self):
+        b = self._take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self._map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return self._array(b & 0x0F)
+        if 0xA0 <= b <= 0xBF:
+            return self._take(b & 0x1F).decode("utf-8")
+        sized = {0xC4: "B", 0xC5: "H", 0xC6: "I"}          # bin 8/16/32
+        if b in sized:
+            return bytes(self._take(self._unpack(sized[b])))
+        ext = {0xC7: "B", 0xC8: "H", 0xC9: "I"}            # ext 8/16/32
+        if b in ext:
+            n = self._unpack(ext[b])
+            return self._ext(self._unpack("b"), n)
+        fixext = {0xD4: 1, 0xD5: 2, 0xD6: 4, 0xD7: 8, 0xD8: 16}
+        if b in fixext:
+            return self._ext(self._unpack("b"), fixext[b])
+        scalars = {0xCC: "B", 0xCD: "H", 0xCE: "I", 0xCF: "Q",
+                   0xD0: "b", 0xD1: "h", 0xD2: "i", 0xD3: "q"}
+        if b in scalars:
+            return self._unpack(scalars[b])
+        strs = {0xD9: "B", 0xDA: "H", 0xDB: "I"}
+        if b in strs:
+            return self._take(self._unpack(strs[b])).decode("utf-8")
+        if b in (0xDC, 0xDD):
+            return self._array(self._unpack("H" if b == 0xDC else "I"))
+        if b in (0xDE, 0xDF):
+            return self._map(self._unpack("H" if b == 0xDE else "I"))
+        raise ValueError(f"unsupported msgpack type byte 0x{b:02x}")
+
+    def _array(self, n: int):
+        return [self.read() for _ in range(n)]
+
+    def _map(self, n: int):
+        out = {}
+        for _ in range(n):
+            key = self.read()
+            out[key] = self.read()
+        return out
+
+    def _ext(self, code: int, n: int):
+        payload = self._take(n)
+        if code != _EXT_NDARRAY:
+            raise ValueError(f"unsupported msgpack ext type {code}")
+        shape, dtype, raw = _Reader(payload).read()
+        return np.frombuffer(raw, dtype=np.dtype(dtype)).reshape(shape).copy()
+
+
+def load_flax_msgpack(path: str) -> dict:
+    """Read a flax msgpack checkpoint into a nested dict of numpy arrays."""
+    with open(path, "rb") as f:
+        data = f.read()
+    reader = _Reader(data)
+    tree = reader.read()
+    if reader.pos != len(data):
+        raise ValueError(f"{path}: trailing bytes after the msgpack object")
+    return tree
+
+
+def config_fingerprint(config: PillarsConfig) -> np.ndarray:
+    """Stable 8-byte digest of a PillarsConfig, as checkpoints store it."""
+    text = repr(sorted(dataclasses.asdict(config).items())).encode()
+    return np.frombuffer(hashlib.sha256(text).digest()[:8], np.uint8).copy()
+
+
+def check_fingerprint(tree: dict, config: PillarsConfig, path: str) -> None:
+    """Refuse a checkpoint written for another config (when it recorded
+    one)."""
+    if "config_fp" not in tree:
+        return
+    want = config_fingerprint(config)
+    got = np.asarray(tree["config_fp"], np.uint8)
+    if not np.array_equal(want, got):
+        raise ValueError(
+            f"checkpoint {path} was written for a different PillarsConfig "
+            f"(fingerprint {got.tobytes().hex()} != {want.tobytes().hex()}); "
+            f"refusing to restore")
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+
+
+def _bn(sd: dict, prefix: str, params: dict, stats: dict) -> None:
+    sd[f"{prefix}.weight"] = _t(params["scale"])
+    sd[f"{prefix}.bias"] = _t(params["bias"])
+    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
+    sd[f"{prefix}.running_var"] = _t(stats["var"])
+
+
+def params_from_flax(variables: dict, config: PillarsConfig) -> dict:
+    """Flax variables {'params', 'batch_stats'} as numpy -> state dict of
+    ``models.pointpillars.PointPillars``.
+
+    Layouts: flax Conv kernels (kh, kw, in, out) become torch (out, in, kh,
+    kw); flax ConvTranspose kernels are applied spatially flipped relative
+    to torch's ConvTranspose2d (in, out, kh, kw), so they are flipped before
+    the permute. The PFN and head kernels keep flax's (in, out) layout
+    (they run as matmuls). BatchNorm keeps its running stats (eps 1e-3 is
+    the modules')."""
+    p = variables["params"]
+    bs = variables["batch_stats"]
+    sd: dict = {"pfn.kernel": _t(p["pfn"]["linear"]["kernel"])}
+    _bn(sd, "pfn.bn", p["pfn"]["bn"], bs["pfn"]["bn"])
+    for i, n_layers in enumerate(config.rpn_layers):
+        blk, blk_s = p["rpn"][f"block{i}"], bs["rpn"][f"block{i}"]
+        for j in range(n_layers):
+            sd[f"rpn.blocks.{i}.convs.{j}"] = _t(
+                blk[f"conv{j}"]["kernel"]).permute(3, 2, 0, 1).contiguous()
+            _bn(sd, f"rpn.blocks.{i}.bns.{j}", blk[f"bn{j}"], blk_s[f"bn{j}"])
+        up, up_s = p["rpn"][f"up{i}"], bs["rpn"][f"up{i}"]
+        sd[f"rpn.ups.{i}.weight"] = _t(up["deconv"]["kernel"]).flip(
+            0, 1).permute(2, 3, 0, 1).contiguous()
+        _bn(sd, f"rpn.ups.{i}.bn", up["bn"], up_s["bn"])
+    c = 3 * config.rpn_up_channels
+    for name in ("cls", "box", "dir"):
+        k = p["head"][name]["kernel"]
+        sd[f"head.{name}.weight"] = _t(k).reshape(c, -1)
+        sd[f"head.{name}.bias"] = _t(p["head"][name]["bias"])
+    return sd
