@@ -7,21 +7,34 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda`` or ``CUDA_HOME``), and
 imports nothing of JAX. Phases; any failure exits non-zero before the last
 line:
 
-  1. Print the card (``nvidia-smi`` name and power limit) and build the four
+  1. Print the card (``nvidia-smi`` name and power limit) and build the five
      CUDA kernels of ``tpu_pillars_torch/csrc`` from source.
   2. On a batch of 8 lidar-like sweeps of ~100k points at the full
      ``PillarsConfig()``, run each kernel and its plain PyTorch version on
-     the card on the same inputs: K1 emit and K3 scatter must be bit-equal,
-     K2 fused PFN within atol 1e-5 / rtol 1e-5, K4 NMS overlap equal except
-     pairs whose IoU lies within 1e-4 of the threshold. Times each (CUDA
-     events, median), with its bound and, where one PyTorch call computes
-     the same function, that call's time.
-  3. The main path: ``Detector.from_checkpoint`` on the committed trained
-     checkpoint; ``predict`` on the 8 golden scenes of
+     the card on the same inputs: K1 emit and K3 scatter must be bit-equal
+     (K3's backward too), K2 fused PFN within atol 1e-5 / rtol 1e-5, K4 NMS
+     overlap equal except pairs whose IoU lies within 1e-4 of the
+     threshold. K5 (the target assigner) on the training batch's GT, the
+     golden GT and a crowded 16-per-class GT set: best IoU within 2e-5, the
+     best GT equal wherever the IoU is positive and not tied within 2e-5.
+     Times each (CUDA events, median), with its bound and, where one
+     PyTorch call computes the same function, that call's time.
+  3. The serving path: ``Detector.from_checkpoint`` on the committed
+     trained checkpoint; ``predict`` on the 8 golden scenes of
      ``tests/data/torch_golden_synth4k.npz`` (written by
      ``scripts/make_torch_golden.py`` from the JAX package) must reproduce
      the JAX detections; ``predict_packed_batch`` at batch 8 is timed by
-     stage. Every kernel must have launched during these calls.
+     stage. K1-K4 must have launched during these calls.
+  4. The training path: on the golden batch of
+     ``tests/data/torch_train_golden_synth4k.npz`` (written by
+     ``scripts/make_torch_train_golden.py`` from the JAX package) the port's
+     targets must equal the JAX ones outside 0.1% of the anchors, and three
+     steps from the trained checkpoint given the JAX targets must match the
+     JAX losses (rtol 2e-3 per step) and running statistics (rtol 1e-2,
+     atol 1e-4); then ``train.loop.fit`` at the full config, batch 8, f32,
+     with remat "all" and off, reports the median step time, sweeps/s, peak
+     memory and a synchronised split. K1, K3 and K5 must have launched
+     during the training steps.
 
 The line before the last is a JSON object ``{"kernels": [...]}``; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -53,6 +66,13 @@ F32_OPS_PER_S = 67e12
 # and the recentring + two half-edge integrals + IoU of a pair that passes it
 K4_OPS_GATE = 8
 K4_OPS_HOT = 1500
+# K5 (csrc/assign.cu) runs the same gate and the same pair arithmetic
+K5_OPS_GATE = 8
+K5_OPS_HOT = 1500
+K5_IOU_TOL = 2e-5
+TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
+                            "torch_train_golden_synth4k.npz")
+TRAIN_STEPS = 6          # per remat mode; the first is a warm-up
 
 
 def fail(msg: str) -> None:
@@ -129,6 +149,8 @@ def main() -> None:
     from tpu_pillars_torch.detector import Detector, packed_to_boxes
     from tpu_pillars_torch.ops import bev, emit, fused_pfn, nms_overlap
     from tpu_pillars_torch.ops.voxelize import sort_points_by_pillar
+    from tpu_pillars_torch.train.loop import synthetic_batches
+    from tpu_pillars_torch.train.state import TrainConfig
 
     # ---- phase 1: the card and the build
     smi = subprocess.run(
@@ -234,6 +256,34 @@ def main() -> None:
         library_ms=cuda_ms(library_scatter, 20),
         bound=bound(n_pillars * C * 4 + BATCH * P * 5 + canvas.numel() * 4,
                     0.0))
+    # K3's backward (training): the row gather against the plain autograd
+    # gradient of the plain scatter, bit for bit
+    cot = torch.randn(canvas.shape, device=dev,
+                      generator=torch.Generator(dev).manual_seed(SEED))
+    f1 = feats.detach().clone().requires_grad_(True)
+    f2 = feats.detach().clone().requires_grad_(True)
+    bev.scatter_to_bev_diff(f1, pid, mask, cfg).backward(cot)
+    bev.scatter_to_bev_plain(f2, pid, mask, cfg).backward(cot)
+    if not torch.equal(f1.grad, f2.grad):
+        fail("K3 backward differs from the plain autograd gradient")
+    print("K3 backward: bit-equal to the plain autograd gradient")
+    del cot, f1, f2
+
+    # K5 on the main path's GT (the first batch-8 training batch), the
+    # golden training GT and a crowded 16-per-class set
+    tcfg8 = TrainConfig(batch_size=BATCH)
+    train_arrays = next(synthetic_batches(cfg, tcfg8, seed=SEED))
+    golden_t = np.load(TRAIN_GOLDEN)
+    gt_sets = {
+        "train_batch": train_arrays[2:],
+        "golden": (golden_t["gt_boxes"], golden_t["gt_classes"],
+                   golden_t["gt_valid"]),
+        "crowded": crowded_gt(cfg, BATCH),
+    }
+    for name, gt in gt_sets.items():
+        err = check_assign(cfg, dev, gt, name)
+        if name == "train_batch":
+            rows["assign"] = assign_row(cfg, dev, gt, err)
 
     if len(seen) != 1:
         fail(f"the batch call ran the overlap matrix {len(seen)} times")
@@ -269,7 +319,7 @@ def main() -> None:
     del canvas_p, over_p, feats_p, table_p, meta_p
     torch.cuda.empty_cache()
 
-    # ---- phase 3: the main path
+    # ---- phase 3: the serving path
     golden = np.load(GOLDEN)
     offs = golden["offsets"]
     golden_clouds = [golden["points"][offs[s]:offs[s + 1]]
@@ -286,10 +336,10 @@ def main() -> None:
     launches = dict(_build.LAUNCHES)
     print(f"golden: {len(golden_clouds)} scenes, {n_boxes} boxes match the "
           f"JAX detections")
-    print(f"launches on the main path: {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} did not launch on the main path")
+    print(f"launches on the serving path: {launches}")
+    for name in ("emit", "fused_pfn", "bev_scatter", "nms_overlap"):
+        if launches[name] == 0:
+            fail(f"kernel {name} did not launch on the serving path")
     out = out.cpu().numpy()
     if out.shape != (BATCH, cfg.max_detections, 10) or \
             not np.isfinite(out).all():
@@ -298,14 +348,27 @@ def main() -> None:
         fail("the batch call detected nothing")
 
     stage_split(det, points, counts, clouds)
+    del det, points, counts, out
+    torch.cuda.empty_cache()
+
+    # ---- phase 4: the training path
+    train_golden(cfg, dev)
+    train_launches = {}
+    for remat in ("all", "off"):
+        counts_r = train_fit(cfg, dev, remat)
+        train_launches = counts_r if remat == "all" else train_launches
+    # the main path of this slice for K5 is training; K1-K4 keep the
+    # serving path's counts
+    launches["assign"] = train_launches["assign"]
 
     sources = {"emit": "emit.cu", "fused_pfn": "fused_pfn.cu",
                "bev_scatter": "bev_scatter.cu",
-               "nms_overlap": "nms_overlap.cu"}
+               "nms_overlap": "nms_overlap.cu", "assign": "assign.cu"}
     replaces = {"emit": "tpu_pillars/ops/emit_pallas.py:113",
                 "fused_pfn": "tpu_pillars/ops/fused_pfn.py:102",
                 "bev_scatter": "tpu_pillars/ops/bev_pallas.py:330",
-                "nms_overlap": "tpu_pillars/ops/nms_pallas.py:82"}
+                "nms_overlap": "tpu_pillars/ops/nms_pallas.py:82",
+                "assign": "tpu_pillars/ops/assign_pallas.py:143"}
     kernels = []
     for name, r in rows.items():
         b_ms, b_by = r["bound"]
@@ -313,7 +376,8 @@ def main() -> None:
                else f"{r['library_ms']:.4f} ms")
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {lib}, bound {b_ms:.4f} ms ({b_by}), "
-              f"{launches[name]} launches on the main path")
+              f"{launches[name]} launches on the main path, "
+              f"{train_launches.get(name, 0)} in the remat-all training run")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tpu_pillars_torch/csrc/{sources[name]}",
@@ -325,6 +389,274 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+def crowded_gt(cfg, batch):
+    """16 GT of every class per sample, packed around a few spots so that
+    many anchors see several overlapping GT (ties and near-ties)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    C, G = cfg.num_classes, 16
+    gt = np.zeros((batch, C * G, 7), np.float32)
+    cls = np.repeat(np.arange(C, dtype=np.int32), G)[None].repeat(batch, 0)
+    for b in range(batch):
+        for c, spec in enumerate(cfg.classes):
+            ctr = rng.uniform(-60.0, 60.0, 2)
+            for g in range(G):
+                gt[b, c * G + g] = [
+                    ctr[0] + rng.uniform(-2, 2), ctr[1] + rng.uniform(-2, 2),
+                    spec.z_center, spec.width * rng.uniform(0.8, 1.25),
+                    spec.length * rng.uniform(0.8, 1.25), spec.height,
+                    rng.uniform(-np.pi, np.pi)]
+    return gt, cls, np.ones(cls.shape, bool)
+
+
+def _grouped(cfg, dev, gt):
+    import torch
+
+    from tpu_pillars_torch.ops.target_assigner import group_gt_by_class
+
+    boxes, cls, valid = (torch.as_tensor(x).to(dev) for x in gt)
+    return group_gt_by_class(boxes.float(), cls.long(), valid.bool(),
+                             cfg.num_classes, 16)
+
+
+def check_assign(cfg, dev, gt, name):
+    """K5 against its plain version on one GT set, under the K5 contract;
+    returns the largest IoU difference."""
+    import torch
+
+    from tpu_pillars_torch.ops import assign
+
+    gt_c, gv_c = _grouped(cfg, dev, gt)
+    best, best_gt, gval, ganc = assign.windowed_best_iou(gt_c, gv_c, cfg)
+    wbest, wbest_gt, wgval, _ = assign.windowed_best_iou_plain(gt_c, gv_c,
+                                                               cfg)
+    torch.cuda.synchronize()
+    err = float((best - wbest).abs().max())
+    if err > K5_IOU_TOL or float((gval - wgval).abs().max()) > K5_IOU_TOL:
+        fail(f"K5 on {name}: best IoU differs from the plain version by "
+             f"{err:.2e}")
+    n_clear = n_diff = 0
+    for b in range(gt_c.shape[0]):
+        iou = assign.class_iou_plain(gt_c[b], gv_c[b], cfg)    # (C, Gc, Ac)
+        top2 = iou.topk(2, dim=1).values
+        clear = (wbest[b] > 0) & (top2[:, 0] - top2[:, 1] > K5_IOU_TOL)
+        n_clear += int(clear.sum())
+        n_diff += int((best_gt[b] != wbest_gt[b])[clear].sum())
+        picked = torch.gather(iou, 2, ganc[b][..., None])[..., 0]
+        claim = gv_c[b] & (wgval[b] > 0)
+        if ((picked - wgval[b]).abs()[claim] > K5_IOU_TOL).any():
+            fail(f"K5 on {name}: a GT's best anchor is not a best anchor")
+        del iou, top2
+    if n_diff:
+        fail(f"K5 on {name}: best GT differs on {n_diff} of {n_clear} "
+             f"anchors with a clear best")
+    print(f"K5 {name}: max |d IoU| {err:.2e}, best GT equal on {n_clear} "
+          f"anchors with a clear best, {int(gv_c.sum())} valid GT")
+    return err
+
+
+def assign_row(cfg, dev, gt, err):
+    """K5's times and bound on the main path's GT set."""
+    import torch
+
+    from tpu_pillars_torch.ops import assign
+
+    gt_c, gv_c = _grouped(cfg, dev, gt)
+    planes = assign._device_planes(cfg, dev)
+    pay = assign.gt_payload(gt_c, gv_c)
+    B, C, Gc, _ = gt_c.shape
+    Ac = planes.shape[2]
+    hot = 0
+    for b in range(B):          # pairs that pass the per-anchor gate
+        dx = pay[b, :, :, 8, None] - planes[:, None, 8]
+        dy = pay[b, :, :, 9, None] - planes[:, None, 9]
+        rr = pay[b, :, :, 11, None] + planes[:, None, 11]
+        hot += int(((dx * dx + dy * dy <= rr * rr)
+                    & gv_c[b, :, :, None]).sum())
+    pairs = int(gv_c.sum()) * Ac
+    print(f"K5: {hot} of {pairs} valid (GT, anchor) pairs pass the gate")
+    return dict(
+        err=err, ms=cuda_ms(lambda: assign.windowed_best_iou(gt_c, gv_c, cfg),
+                            20),
+        plain_ms=cuda_ms(lambda: assign.windowed_best_iou_plain(gt_c, gv_c,
+                                                                cfg), 2),
+        library_ms=None,
+        bound=bound(planes.numel() * 4 + pay.numel() * 4 + B * C * Ac * 8
+                    + B * C * Gc * 8,
+                    pairs * K5_OPS_GATE + hot * K5_OPS_HOT))
+
+
+def golden_targets(g, cfg, dev):
+    """The JAX targets stored in the training golden file -> batched
+    ``Targets`` on ``dev``."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch.ops.anchors import make_anchors
+    from tpu_pillars_torch.ops.target_assigner import Targets
+
+    B, A, C = g["gt_boxes"].shape[0], cfg.num_anchors, cfg.num_classes
+    pos = np.unpackbits(g["pos_bits"])[:B * A].reshape(B, A).astype(bool)
+    weight = np.unpackbits(g["weight_bits"])[:B * A].reshape(B, A)
+    reg = np.zeros((B, A, 7), np.float32)
+    reg[pos] = g["reg_pos"]
+    dirt = np.zeros((B, A), np.int32)
+    dirt[pos] = g["dir_pos"]
+    _, anchor_cls = make_anchors(cfg)
+    onehot = (np.asarray(anchor_cls)[None, :] == np.arange(C)[:, None])
+    t = Targets(
+        cls_onehot=onehot[None].astype(np.float32) * pos[:, None],
+        reg_targets=reg.transpose(0, 2, 1),
+        dir_targets=dirt, cls_weights=weight.astype(np.float32),
+        reg_weights=pos.astype(np.float32),
+        num_pos=pos.sum(1).astype(np.float32))
+    return Targets(*(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                     for x in t))
+
+
+def train_golden(cfg, dev):
+    """The training step from the trained checkpoint on the golden batch
+    against the JAX package: the port's own targets against the JAX ones
+    (positives equal outside 0.1% of the anchors), then three steps given
+    the JAX targets against the JAX losses (rtol 2e-3) and running
+    statistics (rtol 1e-2, atol 1e-4)."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch.ops.assign import make_windowed_assigner
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+    from tpu_pillars_torch.train.step import batch_to_device, make_train_step
+    from tpu_pillars_torch.weights import (
+        flax_from_params, load_flax_msgpack, params_from_flax,
+    )
+
+    g = np.load(TRAIN_GOLDEN)
+    offs = g["offsets"]
+    B = len(offs) - 1
+    pts = np.full((B, cfg.max_points, cfg.num_input_features), 1e6,
+                  np.float32)
+    npts = np.zeros(B, np.int32)
+    for s in range(B):
+        cloud = g["points"][offs[s]:offs[s + 1]]
+        n = min(len(cloud), cfg.max_points)
+        pts[s, :n] = cloud[:n]
+        npts[s] = n
+    batch = batch_to_device((pts, npts, g["gt_boxes"], g["gt_classes"],
+                             g["gt_valid"]), dev)
+    jax_targets = golden_targets(g, cfg, dev)
+    own = make_windowed_assigner(cfg)(batch.gt_boxes, batch.gt_classes,
+                                      batch.gt_valid)
+    pos = own.reg_weights > 0
+    want_pos = jax_targets.reg_weights > 0
+    flips = int((pos != want_pos).sum())
+    if flips > 1e-3 * pos.numel():
+        fail(f"golden positives: {flips} of {pos.numel()} anchors differ "
+             f"from the JAX targets")
+    print(f"golden targets: {int(pos.sum())} positives (JAX "
+          f"{int(want_pos.sum())}), {flips} anchors differ")
+
+    tree = load_flax_msgpack(CKPT)
+    variables = {"params": tree["params"], "batch_stats": tree["batch_stats"]}
+    tcfg = TrainConfig(learning_rate=float(g["learning_rate"]),
+                       total_steps=int(g["total_steps"]), batch_size=B)
+    state = create_train_state(cfg, tcfg, state_dict=params_from_flax(
+        variables, cfg))
+    step = make_train_step(cfg, assigner=lambda *gt: jax_targets)
+    for i in range(len(g["losses"])):
+        state, losses = step(state, batch)
+        got = [float(x) for x in losses]
+        want = g["losses"][i]
+        print(f"golden train step {i + 1}: loss {got[0]:.6f} (JAX "
+              f"{want[0]:.6f}), cls {got[1]:.6f} ({want[1]:.6f}), loc "
+              f"{got[2]:.6f} ({want[2]:.6f}), dir {got[3]:.6f} "
+              f"({want[3]:.6f}), num_pos {got[4]:.0f} ({want[4]:.0f})")
+        if not np.isfinite(got).all() or got[4] != want[4] or \
+                abs(got[0] - want[0]) > 2e-3 * abs(want[0]):
+            fail(f"golden train step {i + 1}: loss {got[0]} vs JAX "
+                 f"{want[0]} (rtol 2e-3)")
+    stats = flax_from_params(state.model.state_dict(), cfg)["batch_stats"]
+    worst = 0.0
+    for key in (k for k in g.files if k.startswith("stats/")):
+        node = stats
+        for part in key.split("/")[1:]:
+            node = node[part]
+        want = g[key]
+        if not np.allclose(node, want, rtol=1e-2, atol=1e-4):
+            fail(f"golden running statistic {key} differs: max |d| "
+                 f"{np.abs(node - want).max():.3e}")
+        worst = max(worst, float(np.abs(node - want).max()))
+    print(f"golden training: 3 steps match the JAX losses; running stats "
+          f"max |d| {worst:.2e}")
+    # the port's own step (its own targets), for the record
+    state = create_train_state(cfg, tcfg, state_dict=params_from_flax(
+        variables, cfg))
+    _, losses = make_train_step(cfg)(state, batch)
+    print(f"golden step 1 with the port's own targets: loss "
+          f"{float(losses.total):.6f} (JAX {g['losses'][0][0]:.6f})")
+    del state
+    torch.cuda.empty_cache()
+
+
+def train_fit(cfg, dev, remat):
+    """``train.loop.fit`` at batch 8 from a seeded random model: median
+    step time, sweeps/s, peak memory, and a synchronised split of extra
+    steps. Returns the launches of the timed steps."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.train.loop import fit, synthetic_batches
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+    from tpu_pillars_torch.train.step import batch_to_device, make_train_step
+
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=TRAIN_STEPS,
+                       batch_size=BATCH)
+    state = create_train_state(cfg, tcfg, seed=SEED)
+    step = make_train_step(cfg, remat=remat)
+    times, last = [], []
+
+    def timed(st, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, losses = step(st, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        last.append(float(losses.total))
+        return st, losses
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    state = fit(state, synthetic_batches(cfg, tcfg, seed=SEED), TRAIN_STEPS,
+                step_fn=timed, config=cfg)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name in ("emit", "bev_scatter", "assign"):
+        if launches[name] == 0:
+            fail(f"kernel {name} did not launch during training")
+    if not np.isfinite(last).all():
+        fail(f"training (remat {remat}) gave a non-finite loss: {last}")
+    splits = []
+    batches = synthetic_batches(cfg, tcfg, seed=SEED + 1)
+    for _ in range(3):
+        split = {}
+        step(state, batch_to_device(next(batches), dev), split=split)
+        splits.append(split)
+    split = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
+    med = float(np.median(times[1:]))
+    print(f"training, remat {remat}, batch {BATCH}: median step "
+          f"{med:.2f} ms over {len(times) - 1} steps after a warm-up, "
+          f"{BATCH / med * 1e3:.2f} sweeps/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, losses {[round(x, 4) for x in last]}")
+    print(f"training split, remat {remat} (host clock, synchronised, ms): "
+          + json.dumps(split))
+    print(f"launches in the training run (remat {remat}): {launches}")
+    del state
+    torch.cuda.empty_cache()
+    return launches
 
 
 def overlap_iou64(a, b):

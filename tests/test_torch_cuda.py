@@ -5,12 +5,16 @@ JAX package, so it also runs on a machine that has neither:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-K1 emit and K3 scatter are held bit for bit; K2 fused PFN to atol 1e-5,
-rtol 1e-5 (both sides round the same f32 operations in the same order; the
-kernel is built without fused multiply-adds); K4 overlap equal except pairs
-whose IoU lies within 1e-4 of the threshold; the detector's packed output
-on the card against the same detector on the CPU at the tolerance of
-tests/test_detector_e2e.py::test_jitted_pipeline_matches_cpu_reference."""
+K1 emit and K3 scatter are held bit for bit, K3's backward too; K2 fused
+PFN to atol 1e-5, rtol 1e-5 (both sides round the same f32 operations in
+the same order; the kernel is built without fused multiply-adds); K4
+overlap equal except pairs whose IoU lies within 1e-4 of the threshold; K5
+best IoU within 2e-5 and the best GT equal wherever the IoU is positive and
+not tied within 2e-5; the detector's packed output on the card against the
+same detector on the CPU at the tolerance of
+tests/test_detector_e2e.py::test_jitted_pipeline_matches_cpu_reference; two
+training steps on the card against the same steps on the CPU (loss rtol
+1e-3, equal positives)."""
 
 import numpy as np
 import pytest
@@ -20,7 +24,10 @@ from tpu_pillars_torch import _build
 from tpu_pillars_torch import config as tconfig
 from tpu_pillars_torch.detector import Detector
 from tpu_pillars_torch.models.pointpillars import PointPillars
-from tpu_pillars_torch.ops import bev, emit, fused_pfn, iou, nms_overlap
+from tpu_pillars_torch.ops import (
+    assign, bev, emit, fused_pfn, iou, nms_overlap,
+)
+from tpu_pillars_torch.ops.target_assigner import group_gt_by_class
 from tpu_pillars_torch.ops.voxelize import sort_points_by_pillar
 
 pytestmark = pytest.mark.cuda
@@ -187,7 +194,8 @@ def test_detector_on_card_matches_cpu(dev):
     pts, ns = _cloud(np.random.default_rng(2), [3000, 1500])
     _build.reset_launches()
     got = Detector(CFG, sd).predict_packed_batch(pts, ns).cpu().numpy()
-    assert all(n == 1 for n in _build.LAUNCHES.values()), _build.LAUNCHES
+    serving = ("emit", "fused_pfn", "bev_scatter", "nms_overlap")
+    assert all(_build.LAUNCHES[n] == 1 for n in serving), _build.LAUNCHES
     want = Detector(CFG, sd, device="cpu").predict_packed_batch(
         pts, ns).numpy()
     np.testing.assert_array_equal(got[..., 9], want[..., 9])
@@ -196,3 +204,101 @@ def test_detector_on_card_matches_cpu(dev):
     np.testing.assert_allclose(got[..., :6], want[..., :6], atol=5e-3)
     dyaw = (got[..., 6] - want[..., 6] + np.pi) % (2 * np.pi) - np.pi
     assert np.abs(dyaw).max() < 5e-3
+
+
+def test_scatter_backward_bit_equal(dev):
+    cfg, gid, pts = _sorted_centered("random", dev)
+    table, meta = emit.emit_table(gid, pts, cfg.max_points_per_pillar,
+                                  cfg.max_pillars, cfg.grid_h * cfg.grid_w)
+    m = meta.reshape(-1, 8, cfg.max_pillars)
+    pid, mask = m[:, 1].to(torch.int32), m[:, 0] > 0
+    gen = torch.Generator(dev).manual_seed(1)
+    feats = torch.randn((pid.shape[0], cfg.max_pillars, 64), device=dev,
+                        generator=gen)
+    cot = torch.randn((pid.shape[0], cfg.grid_h, cfg.grid_w, 64), device=dev,
+                      generator=gen)
+    f1 = feats.clone().requires_grad_(True)
+    f2 = feats.clone().requires_grad_(True)
+    before = _build.LAUNCHES["bev_scatter"]
+    bev.scatter_to_bev_diff(f1, pid, mask, cfg).backward(cot)
+    assert _build.LAUNCHES["bev_scatter"] == before + 1
+    bev.scatter_to_bev_plain(f2, pid, mask, cfg).backward(cot)
+    torch.cuda.synchronize()
+    assert torch.equal(f1.grad, f2.grad)
+
+
+def _gt_scene(rng, b, g, cfg=CFG, crowd=False):
+    gt = np.zeros((b, g, 7), np.float32)
+    cls = rng.integers(0, cfg.num_classes, (b, g))
+    valid = rng.random((b, g)) < 0.8
+    for i in range(b):
+        for j in range(g):
+            spec = cfg.classes[cls[i, j]]
+            x, y = (rng.uniform(-3, 3, 2) if crowd else
+                    (rng.uniform(cfg.x_min, cfg.x_max),
+                     rng.uniform(cfg.y_min, cfg.y_max)))
+            gt[i, j] = [x, y, spec.z_center,
+                        spec.width * rng.uniform(0.8, 1.25),
+                        spec.length * rng.uniform(0.8, 1.25), spec.height,
+                        rng.uniform(-np.pi, np.pi)]
+    if crowd:
+        cls[:] = 0
+        valid[:] = True
+    return gt, cls, valid
+
+
+@pytest.mark.parametrize("crowd", [False, True])
+def test_assign_kernel_matches_plain(dev, crowd):
+    gt, cls, valid = _gt_scene(np.random.default_rng(int(crowd)), 3, 40,
+                               crowd=crowd)
+    gt_c, gv_c = group_gt_by_class(torch.from_numpy(gt).to(dev),
+                                   torch.from_numpy(cls).to(dev),
+                                   torch.from_numpy(valid).to(dev),
+                                   CFG.num_classes, 16)
+    before = _build.LAUNCHES["assign"]
+    got = assign.windowed_best_iou(gt_c, gv_c, CFG)
+    assert _build.LAUNCHES["assign"] == before + 1
+    want = assign.windowed_best_iou_plain(gt_c, gv_c, CFG)
+    torch.cuda.synchronize()
+    best, best_gt, gval, ganc = (x.cpu() for x in got)
+    wbest, wbest_gt, wgval, wganc = (x.cpu() for x in want)
+    torch.testing.assert_close(best, wbest, atol=2e-5, rtol=0)
+    torch.testing.assert_close(gval, wgval, atol=2e-5, rtol=0)
+    iou = torch.stack([assign.class_iou_plain(gt_c[b], gv_c[b], CFG).cpu()
+                       for b in range(gt_c.shape[0])])    # (B, C, Gc, Ac)
+    top2 = iou.topk(2, dim=2).values
+    clear = (wbest > 0) & (top2[:, :, 0] - top2[:, :, 1] > 2e-5)
+    assert torch.equal(best_gt[clear], wbest_gt[clear])
+    # a GT's best anchor: the plain one, or one whose IoU ties it
+    picked = torch.gather(iou, 3, ganc[..., None])[..., 0]
+    claim = gv_c.cpu() & (wgval > 0)
+    assert ((picked - wgval).abs()[claim] <= 2e-5).all()
+    assert (ganc[~gv_c.cpu()] == 0).all() and (gval[~gv_c.cpu()] == -1).all()
+
+
+def test_train_steps_on_card_match_cpu(dev):
+    from tpu_pillars_torch.data.synthetic import (
+        make_scene, scenes_to_train_batch,
+    )
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+    from tpu_pillars_torch.train.step import batch_to_device, make_train_step
+
+    rng = np.random.default_rng(3)
+    scenes = [make_scene(rng, CFG, num_objects=6, points_per_object=60,
+                         clutter=400) for _ in range(2)]
+    arrays = scenes_to_train_batch(scenes, CFG, 16)
+    tcfg = TrainConfig(batch_size=2, max_gt_boxes=16, total_steps=10)
+    sd = _random_state_dict(CFG, 6)
+    out = {}
+    for where in ("cuda", "cpu"):
+        state = create_train_state(CFG, tcfg, device=where, state_dict=sd)
+        step = make_train_step(CFG)
+        _build.reset_launches()
+        out[where] = [step(state, batch_to_device(arrays, where))[1]
+                      for _ in range(2)]
+        if where == "cuda":
+            for name in ("emit", "bev_scatter", "assign"):
+                assert _build.LAUNCHES[name] == 2, _build.LAUNCHES
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert int(a.num_pos) == int(b.num_pos) > 0
+        np.testing.assert_allclose(float(a.total), float(b.total), rtol=1e-3)

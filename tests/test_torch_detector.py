@@ -147,6 +147,10 @@ def test_port_imports_no_jax():
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
     assert len(files) > 15
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    for module in ("data/synthetic.py", "train/loop.py", "train/step.py",
+                   "train/state.py", "train/checkpoint.py", "ops/assign.py"):
+        assert os.path.join("tpu_pillars_torch", module) in rel, module
     for path in files:
         for mod in _imports(path):
             assert mod.split(".")[0] not in FORBIDDEN, f"{path}: {mod}"

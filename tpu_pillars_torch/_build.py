@@ -34,9 +34,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # per-source extra flags: these kernels round every product on its own, as
 # plain eager torch does (no fused multiply-add contraction), so each agrees
 # with its plain version
-EXTRA_FLAGS = {"fused_pfn": ["--fmad=false"], "nms_overlap": ["--fmad=false"]}
+EXTRA_FLAGS = {"fused_pfn": ["--fmad=false"], "nms_overlap": ["--fmad=false"],
+               "assign": ["--fmad=false"]}
 
-KERNELS = ("emit", "fused_pfn", "bev_scatter", "nms_overlap")
+KERNELS = ("emit", "fused_pfn", "bev_scatter", "nms_overlap", "assign")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()

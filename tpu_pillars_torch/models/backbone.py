@@ -1,31 +1,41 @@
-"""RPN backbone: top-down 2-D conv pyramid + upsample-and-concat, eval mode.
+"""RPN backbone: top-down 2-D conv pyramid + upsample-and-concat.
 
 Port of ``tpu_pillars/models/backbone.py``. Three down blocks (stride 2
 each), each deconvolved back to the head stride and concatenated. The convs
-stay ``torch.nn.functional`` calls (the JAX package left them to XLA);
-BatchNorm uses its running statistics (eps 1e-3). Tensors run NCHW in
-``channels_last`` memory, so a (B, H, W, C) canvas enters as a permuted
-view with no copy.
+stay ``torch.nn.functional`` calls (the JAX package left them to XLA).
+Tensors run NCHW in ``channels_last`` memory, so a (B, H, W, C) canvas
+enters as a permuted view with no copy.
+
+BatchNorm (eps 1e-3) runs on its running statistics in ``forward``. Each
+module's ``train_forward`` normalizes with the batch moments as flax's
+``nn.BatchNorm(momentum=0.99, epsilon=1e-3)`` does — ``var = max(0, E[x^2]
+- E[x]^2)``, biased — and RETURNS the moments instead of updating the
+running statistics: under ``torch.utils.checkpoint`` a block's forward runs
+twice, so the caller applies :meth:`BatchNorm.update_running` once per step
+(``ra = 0.99 ra + 0.01 batch``, flax's rule, not torch's unbiased one).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
 
 
-class FrozenBatchNorm(nn.Module):
-    """Inference BatchNorm over dim 1 with running statistics."""
+class BatchNorm(nn.Module):
+    """BatchNorm over dim 1: trainable scale (``weight``) and ``bias``,
+    running statistics as buffers."""
 
     def __init__(self, channels: int):
         super().__init__()
-        self.register_buffer("weight", torch.ones(channels))
-        self.register_buffer("bias", torch.zeros(channels))
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
@@ -33,6 +43,27 @@ class FrozenBatchNorm(nn.Module):
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, training=False,
                             eps=BN_EPS)
+
+    def train_forward(self, x):
+        """Batch-statistics BatchNorm of (B, C, H, W) x -> (y, mean, var),
+        flax's arithmetic: y = (x - mean) * (rsqrt(var + eps) * scale)
+        + bias."""
+        dims = (0, 2, 3)
+        mean = x.mean(dim=dims)
+        mean2 = (x * x).mean(dim=dims)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        y = (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        return y, mean, var
+
+    @torch.no_grad()
+    def update_running(self, mean, var) -> None:
+        """ra = momentum * ra + (1 - momentum) * batch, for mean and the
+        biased var."""
+        m = BN_MOMENTUM
+        self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+        self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
 
 
 class ConvBlock(nn.Module):
@@ -45,10 +76,9 @@ class ConvBlock(nn.Module):
         self.stride = stride
         self.convs = nn.ParameterList(
             [nn.Parameter(torch.zeros(channels, in_ch if i == 0 else channels,
-                                      3, 3), requires_grad=False)
+                                      3, 3))
              for i in range(layers)])
-        self.bns = nn.ModuleList(FrozenBatchNorm(channels)
-                                 for _ in range(layers))
+        self.bns = nn.ModuleList(BatchNorm(channels) for _ in range(layers))
 
     def forward(self, x):
         for i, (w, bn) in enumerate(zip(self.convs, self.bns)):
@@ -56,6 +86,17 @@ class ConvBlock(nn.Module):
                          padding=1)
             x = torch.relu(bn(x))
         return x
+
+    def train_forward(self, x):
+        """Batch-statistics forward -> (y, mean_0, var_0, mean_1, ...)."""
+        moments = []
+        for i, (w, bn) in enumerate(zip(self.convs, self.bns)):
+            x = F.conv2d(x, w, stride=self.stride if i == 0 else 1,
+                         padding=1)
+            x, mean, var = bn.train_forward(x)
+            x = torch.relu(x)
+            moments += [mean, var]
+        return (x, *moments)
 
 
 class UpBlock(nn.Module):
@@ -65,12 +106,17 @@ class UpBlock(nn.Module):
         super().__init__()
         self.stride = stride
         self.weight = nn.Parameter(torch.zeros(in_ch, channels, stride,
-                                               stride), requires_grad=False)
-        self.bn = FrozenBatchNorm(channels)
+                                               stride))
+        self.bn = BatchNorm(channels)
 
     def forward(self, x):
         return torch.relu(self.bn(F.conv_transpose2d(x, self.weight,
                                                      stride=self.stride)))
+
+    def train_forward(self, x):
+        y, mean, var = self.bn.train_forward(
+            F.conv_transpose2d(x, self.weight, stride=self.stride))
+        return torch.relu(y), mean, var
 
 
 class RPNBackbone(nn.Module):
@@ -94,3 +140,30 @@ class RPNBackbone(nn.Module):
             x = block(x)
             ups.append(up(x))
         return torch.cat(ups, dim=1)
+
+    def batch_norms(self) -> List[BatchNorm]:
+        """Every BatchNorm in the order :meth:`train_forward` returns their
+        moments."""
+        out = []
+        for block, up in zip(self.blocks, self.ups):
+            out += list(block.bns) + [up.bn]
+        return out
+
+    def train_forward(self, x, remat: bool = False):
+        """Batch-statistics forward -> (features, moments) with one (mean,
+        var) per :meth:`batch_norms` entry. remat checkpoints each block:
+        its activations are recomputed in the backward pass."""
+        def run(fn, *args):
+            if remat:
+                return checkpoint(fn, *args, use_reentrant=False)
+            return fn(*args)
+
+        ups, flat = [], []
+        for block, up in zip(self.blocks, self.ups):
+            x, *m = run(block.train_forward, x)
+            flat += m
+            u, *m = run(up.train_forward, x)
+            flat += m
+            ups.append(u)
+        moments = list(zip(flat[0::2], flat[1::2]))
+        return torch.cat(ups, dim=1), moments

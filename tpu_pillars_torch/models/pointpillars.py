@@ -1,9 +1,12 @@
-"""PointPillars serving model: folded PFN weights, RPN, and the wire head.
+"""PointPillars model: PFN weights, RPN, and the SSD head as matmuls.
 
-Port of the serving parts of ``tpu_pillars/models/pointpillars.py``
-(``features_from_canvas``) and ``tpu_pillars/detector.py`` (``_wire_head``).
+Port of ``tpu_pillars/models/pointpillars.py`` (``features_from_canvas``),
+``tpu_pillars/detector.py`` (``_wire_head``, the serving wire) and
+``tpu_pillars/models/head.py`` (``feature_major_head``, the training head).
 The front end (sort, K1 emit, K2 fused PFN, K3 scatter) lives in
-``ops``; this module holds the weights and runs the dense part.
+``ops``; this module holds the weights and runs the dense part. Weights
+and BatchNorm affines are trainable parameters; serving runs them under
+``torch.no_grad()``. BatchNorm running statistics are buffers.
 
 TF32: a float32 convolution goes through cuDNN in TF32 by default, and the
 JAX reference runs in full f32. :func:`full_fp32` turns TF32 off for
@@ -19,7 +22,7 @@ import torch
 from torch import nn
 
 from tpu_pillars_torch.config import PillarsConfig
-from tpu_pillars_torch.models.backbone import FrozenBatchNorm, RPNBackbone
+from tpu_pillars_torch.models.backbone import BatchNorm, RPNBackbone
 from tpu_pillars_torch.ops.fused_pfn import fold_bn
 
 
@@ -36,15 +39,31 @@ def full_fp32():
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
+def remat_flags(remat) -> tuple:
+    """Normalize the remat knob to (checkpoint_pfn, checkpoint_rpn):
+    True/"all" both tiers, "pfn" or "rpn" one, False/"off"/None neither."""
+    if remat is None or remat == "off" or remat is False:
+        return False, False
+    if remat == "pfn":
+        return True, False
+    if remat == "rpn":
+        return False, True
+    if remat is True or remat == "all":
+        return True, True
+    raise ValueError(f"remat must be bool, 'all', 'pfn', 'rpn' or 'off'; "
+                     f"got {remat!r}")
+
+
 class PFNWeights(nn.Module):
     """The PillarFeatureNet's linear kernel (D, C) and BatchNorm; serving
     only needs them folded (:meth:`folded`)."""
 
     def __init__(self, in_dim: int, channels: int):
         super().__init__()
-        self.register_buffer("kernel", torch.zeros(in_dim, channels))
-        self.bn = FrozenBatchNorm(channels)
+        self.kernel = nn.Parameter(torch.zeros(in_dim, channels))
+        self.bn = BatchNorm(channels)
 
+    @torch.no_grad()
     def folded(self):
         bn = self.bn
         return fold_bn(self.kernel, bn.weight, bn.bias, bn.running_mean,
@@ -64,9 +83,9 @@ class WireHead(nn.Module):
         self.a_loc = anchors_per_loc
         for name, width in (("cls", num_classes), ("box", 7), ("dir", 2)):
             lin = nn.Module()
-            lin.register_buffer("weight",
-                                torch.zeros(feat_ch, anchors_per_loc * width))
-            lin.register_buffer("bias", torch.zeros(anchors_per_loc * width))
+            lin.weight = nn.Parameter(
+                torch.zeros(feat_ch, anchors_per_loc * width))
+            lin.bias = nn.Parameter(torch.zeros(anchors_per_loc * width))
             self.add_module(name, lin)
         a_loc = anchors_per_loc
         # own-class channel of anchor a_loc: class a_loc // 2 (2 yaws each)
@@ -99,10 +118,31 @@ class WireHead(nn.Module):
         return (own.reshape(B, a), box_p.reshape(B, 7, a),
                 dir_p.reshape(B, 2, a))
 
+    def feature_major(self, feat):
+        """The training head: feat (B, Hf, Wf, C) -> (cls (B, K, A),
+        box (B, 7, A), dir (B, 2, A)) f32 in CANONICAL anchor order (a = hw
+        * A_loc + a_loc). Each output feature k is its own (HW, C) @ (C,
+        A_loc) product of the kernel's columns a_loc * k_dim + k, as
+        ``tpu_pillars/models/head.py`` feature_major_head computes it."""
+        B, hf, wf, c = feat.shape
+        f = feat.reshape(B, hf * wf, c)
+
+        def emit(lin, k_dim):
+            outs = []
+            for k in range(k_dim):
+                cols = torch.arange(self.a_loc, device=feat.device) * k_dim + k
+                out_k = f @ lin.weight[:, cols] + lin.bias[cols]
+                outs.append(out_k.reshape(B, -1))
+            return torch.stack(outs, dim=1)
+
+        return emit(self.cls, self.k), emit(self.box, 7), emit(self.dir, 2)
+
 
 class PointPillars(nn.Module):
-    """Serving weights of the detector; load with ``weights.params_from_
-    flax``. Inference only (frozen BatchNorm, no gradients)."""
+    """Weights of the detector; load with ``weights.params_from_flax``, save
+    with ``weights.flax_from_params``. The training forward is
+    ``train.step``'s: it runs the PFN through ``ops.fused_pfn``,
+    :meth:`RPNBackbone.train_forward` and :meth:`WireHead.feature_major`."""
 
     def __init__(self, config: PillarsConfig):
         super().__init__()
@@ -120,6 +160,15 @@ class PointPillars(nn.Module):
             memory_format=torch.channels_last)
         with full_fp32():
             return self.rpn(x).permute(0, 2, 3, 1).contiguous()
+
+    def train_features_from_canvas(self, canvas, remat: bool = False):
+        """Batch-statistics RPN: canvas -> (feature map (B, H/2, W/2,
+        C_feat), one (mean, var) per ``self.rpn.batch_norms()``). The caller
+        holds ``full_fp32`` across forward and backward."""
+        x = canvas.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        feat, moments = self.rpn.train_forward(x, remat=remat)
+        return feat.permute(0, 2, 3, 1), moments
 
     def wire_head(self, feat):
         with full_fp32():

@@ -5,7 +5,9 @@ contract): each valid pillar's C features land at canvas cell ``pid``;
 every other cell is zero. Pillar ids are unique per sample (the emit table
 holds each pillar once), so the result is exact with no atomics. On a CUDA
 tensor :func:`scatter_to_bev` launches ``csrc/bev_scatter.cu``; on a CPU
-tensor it runs :func:`scatter_to_bev_plain`.
+tensor it runs :func:`scatter_to_bev_plain`. Training uses
+:func:`scatter_to_bev_diff`: the same forward, and the JAX package's
+row-gather backward (``bev_pallas.py`` ``_ring_diff_bwd``).
 """
 
 from __future__ import annotations
@@ -51,6 +53,42 @@ def scatter_to_bev(pillar_features, pid_per, pillar_mask,
     _build.check(err, "scatter_to_bev")
     _build.LAUNCHES["bev_scatter"] += 1
     return canvas
+
+
+class _ScatterDiff(torch.autograd.Function):
+    """K3 forward; the backward is the row gather of the JAX package's
+    ``_ring_diff_bwd``: each valid pillar wrote its C features to its own
+    cell exactly once, so its cotangent is the canvas cotangent read back
+    at that cell (zero where the pillar mask is false; no gradient for the
+    ids or the mask)."""
+
+    @staticmethod
+    def forward(ctx, pillar_features, pid_per, pillar_mask, config):
+        ctx.save_for_backward(pid_per, pillar_mask)
+        return scatter_to_bev(pillar_features, pid_per, pillar_mask, config)
+
+    @staticmethod
+    def backward(ctx, g):
+        pid_per, pillar_mask = ctx.saved_tensors
+        return scatter_to_bev_grad(g, pid_per, pillar_mask), None, None, None
+
+
+def scatter_to_bev_grad(g, pid_per, pillar_mask):
+    """Cotangent of the pillar features: (B, H, W, C) canvas cotangent ->
+    (B, P, C), one row gather (the JAX package does it in XLA)."""
+    B, P = pid_per.shape
+    C = g.shape[-1]
+    g2 = g.reshape(B, -1, C)
+    idx = torch.where(pillar_mask, pid_per, 0).long()
+    rows = torch.gather(g2, 1, idx[..., None].expand(B, P, C))
+    return rows * pillar_mask[..., None].to(rows.dtype)
+
+
+def scatter_to_bev_diff(pillar_features, pid_per, pillar_mask,
+                        config: PillarsConfig):
+    """Differentiable :func:`scatter_to_bev` for training (K3 on the card)
+    with the row-gather backward."""
+    return _ScatterDiff.apply(pillar_features, pid_per, pillar_mask, config)
 
 
 def scatter_to_bev_plain(pillar_features, pid_per, pillar_mask,

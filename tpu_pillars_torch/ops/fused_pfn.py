@@ -127,6 +127,121 @@ def pfn_from_table_plain(table, meta, w_eff, w_dec, config: PillarsConfig):
     return out.reshape(B, p_rows, C), pid_b, cnt_b
 
 
+def _cell_centres(pid, config: PillarsConfig):
+    col = (pid % config.grid_w).to(torch.float32)[:, None]
+    row = (pid // config.grid_w).to(torch.float32)[:, None]
+    return (config.x_min + (col + 0.5) * config.voxel_x,
+            config.y_min + (row + 0.5) * config.voxel_y)
+
+
+def pfn_from_table_diff(table, meta, w_eff, w_dec, config: PillarsConfig):
+    """Differentiable twin of :func:`pfn_from_table` for training — the JAX
+    package's ``pfn_from_table_xla``: one (rows*N, F) @ w_eff matmul, the
+    -1e9 mask, a masked max (``amax``, whose gradient splits evenly among
+    ties as JAX's max does) and the t-bias, in stock torch ops (the JAX
+    package runs this pass in XLA, outside any kernel). Same outputs as
+    :func:`pfn_from_table`."""
+    N = config.max_points_per_pillar
+    F, C = w_eff.shape
+    p_rows = meta.shape[1]
+    B, cnt_b, pid_b = _split_meta(meta, p_rows)
+    rows = B * p_rows
+    m = meta.reshape(B, META_ROWS, p_rows)
+    cnt = cnt_b.reshape(rows)
+    pid = pid_b.reshape(rows)
+
+    X = table[:, :N * F].reshape(rows * N, F)
+    seg = torch.arange(N, dtype=torch.float32, device=table.device)
+    mask = seg[None, :] < cnt[:, None]                         # (rows, N)
+    u = (X @ w_eff).reshape(rows, N, C)
+    u = torch.where(mask[..., None], u, -1e9)
+    smax = u.amax(dim=1)                                       # (rows, C)
+
+    cx, cy = _cell_centres(pid, config)
+    inv_cnt = (1.0 / torch.clamp(cnt, min=1.0))[:, None]
+    mx = m[:, 2].reshape(rows)[:, None] * inv_cnt
+    my = m[:, 3].reshape(rows)[:, None] * inv_cnt
+    mz = m[:, 4].reshape(rows)[:, None] * inv_cnt
+    t = (w_dec[5][None] - mx * w_dec[0][None] - my * w_dec[1][None]
+         - mz * w_dec[2][None] - cx * w_dec[3][None] - cy * w_dec[4][None])
+    out = torch.where((cnt > 0.0)[:, None],
+                      torch.clamp(smax + t, min=0.0), 0.0)
+    return out.reshape(B, p_rows, C), pid_b, cnt_b
+
+
+def pfn_train_from_table(table, meta, w, bn_scale, bn_bias,
+                         config: PillarsConfig, eps: float = 1e-3):
+    """Train-mode fused PFN: decorated-space linear + masked BatchNorm on
+    the batch statistics + ReLU + masked max, without the decorated
+    (B, P, N, D) or post-linear tensors for the statistics. Port of the JAX
+    package's ``pfn_train_from_table``.
+
+    With y_j = W_eff^T r'_j + t_p(j) (module docstring), the masked moments
+    per channel come from sufficient statistics of the table:
+
+        E[y]  = (W_eff^T sum r' + sum_p cnt_p t_p) / n
+        E[y^2] = (diag(W_eff^T S W_eff) + 2 sum_p t_p (s_p W_eff)
+                  + sum_p cnt_p t_p^2) / n,        S = sum r' r'^T (F x F)
+
+    var = max(E[y^2] - E[y]^2, 0) (biased, count clamped to >= 1). The
+    batch affine then folds into the weights (:func:`fold_bn`) and one
+    :func:`pfn_from_table_diff` pass gives the features. Differentiable in
+    w, bn_scale and bn_bias.
+
+    w (D, C) decorated-space kernel; bn_scale, bn_bias (C,) ->
+    (feats (B, P, C), pid (B, P) int32, cnt (B, P), batch_mean (C,),
+    batch_var (C,)); the caller owns the running-average update."""
+    N = config.max_points_per_pillar
+    F = config.num_input_features
+    C = w.shape[1]
+    if w.shape[0] != F + 5:
+        raise ValueError(f"PFN weight has {w.shape[0]} rows; the config "
+                         f"decorates to {F + 5}")
+    p_rows = meta.shape[1]
+    B, cnt_b, pid_b = _split_meta(meta, p_rows)
+    rows = B * p_rows
+    cnt = cnt_b.reshape(rows)
+    pid = pid_b.reshape(rows)
+
+    X = table[:, :N * F].reshape(rows, N, F)
+    seg = torch.arange(N, dtype=torch.float32, device=table.device)
+    Xm = X * (seg[None, :] < cnt[:, None]).to(torch.float32)[..., None]
+
+    s_p = Xm.sum(dim=1)                                        # (rows, F)
+    sbar = s_p.sum(dim=0)                                      # (F,)
+    flat = Xm.reshape(rows * N, F)
+    S = flat.t() @ flat                                        # (F, F)
+
+    w_eff, _ = fold_decoration(w, torch.zeros_like(w[0]), config)
+    # per-pillar decoration bias t (the linear has no bias): t = cx w_x +
+    # cy w_y - mx' w_xc - my' w_yc - mz w_zc (locals x' = x - cell centre)
+    cx, cy = _cell_centres(pid, config)
+    inv_cnt = (1.0 / torch.clamp(cnt, min=1.0))[:, None]
+    mean_xyz = s_p[:, :3] * inv_cnt
+    t = (cx * w[0][None] + cy * w[1][None]
+         - mean_xyz[:, 0:1] * w[F + 0][None]
+         - mean_xyz[:, 1:2] * w[F + 1][None]
+         - mean_xyz[:, 2:3] * w[F + 2][None])                  # (rows, C)
+    t = torch.where((cnt > 0.0)[:, None], t, 0.0)
+
+    m_p = s_p @ w_eff                                          # (rows, C)
+    n = torch.clamp(cnt.sum(), min=1.0)
+    t_cnt = (cnt[:, None] * t).sum(dim=0)
+    t_mp = (t * m_p).sum(dim=0)
+    t_sq = (cnt[:, None] * t * t).sum(dim=0)
+    mean = (sbar @ w_eff + t_cnt) / n
+    e_u2 = ((S @ w_eff) * w_eff).sum(dim=0) / n
+    var = torch.clamp(e_u2 + 2.0 * (t_mp / n) + t_sq / n - mean * mean,
+                      min=0.0)
+
+    a = bn_scale * torch.rsqrt(var + eps)
+    w_eff2, w_dec2 = fold_decoration(w * a[None, :], bn_bias - mean * a,
+                                     config)
+    feats, pid_out, cnt_out = pfn_from_table_diff(table, meta, w_eff2,
+                                                  w_dec2, config)
+    return feats, pid_out, cnt_out, mean, var
+
+
 def center_points(gid_sorted, pts_sorted, config: PillarsConfig):
     """Cell-centre the sorted payload: x' = x - cx, y' = y - cy with (cx,
     cy) each point's own cell centre (exact f32 subtracts). Invalid rows

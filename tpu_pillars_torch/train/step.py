@@ -1,0 +1,180 @@
+"""The training step: points and GT boxes in, one AdamW update out. Port of
+``tpu_pillars/train/step.py`` on its fused path (the one the JAX package
+runs on its accelerator):
+
+  points -> sort + cell-centre + K1 emit (``ops.fused_pfn``)
+         -> differentiable fused PFN, masked BatchNorm from sufficient
+            statistics (``pfn_train_from_table``)
+         -> K3 scatter, row-gather backward (``ops.bev.scatter_to_bev_diff``)
+         -> batch-statistics RPN -> feature-major head
+  GT     -> K5 windowed target assignment (``ops.assign``)
+         -> focal / smooth-L1 / direction loss -> backward
+         -> global-norm clip + AdamW (``train.state.AdamW``)
+
+The forward and backward run under ``models.pointpillars.full_fp32`` (no
+TF32 in cuDNN or cuBLAS), like the f32 reference. BatchNorm running
+statistics are updated by the step itself from the moments the forward
+returns (momentum 0.99, biased variance), once per microbatch — never inside
+a checkpointed block, whose forward runs twice under remat.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import NamedTuple, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from tpu_pillars_torch.config import PillarsConfig
+from tpu_pillars_torch.models.pointpillars import full_fp32, remat_flags
+from tpu_pillars_torch.ops.assign import make_windowed_assigner
+from tpu_pillars_torch.ops.bev import scatter_to_bev_diff
+from tpu_pillars_torch.ops.fused_pfn import (
+    emit_centered_table, pfn_train_from_table,
+)
+from tpu_pillars_torch.ops.losses import LossBreakdown, detection_loss_fm
+from tpu_pillars_torch.train.state import TrainState
+
+
+class TrainBatch(NamedTuple):
+    """One statically padded batch of tensors on the training device.
+
+    points (B, M, F) f32; num_points (B,) int; gt_boxes (B, G, 7) f32;
+    gt_classes (B, G) int; gt_valid (B, G) bool."""
+
+    points: torch.Tensor
+    num_points: torch.Tensor
+    gt_boxes: torch.Tensor
+    gt_classes: torch.Tensor
+    gt_valid: torch.Tensor
+
+
+def batch_to_device(arrays, device) -> TrainBatch:
+    """numpy (points, num_points, gt_boxes, gt_classes, gt_valid) (e.g.
+    ``data.synthetic.scenes_to_train_batch``) -> :class:`TrainBatch`."""
+    dtypes = (torch.float32, torch.int64, torch.float32, torch.int64,
+              torch.bool)
+    return TrainBatch(*(torch.as_tensor(a).to(device, dt)
+                        for a, dt in zip(arrays, dtypes)))
+
+
+class _Phases:
+    """Host-clock split of a step, synchronising the card at each mark; a
+    no-op when no dict is given."""
+
+    def __init__(self, out: Optional[dict], device):
+        self.out = out
+        self.device = device
+        self.t = None
+        if out is not None:
+            self._sync()
+            self.t = time.perf_counter()
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def mark(self, name: str) -> None:
+        if self.out is None:
+            return
+        self._sync()
+        now = time.perf_counter()
+        self.out[name] = self.out.get(name, 0.0) + (now - self.t) * 1e3
+        self.t = now
+
+
+def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
+                    remat=True, accum_steps: int = 1, assigner=None):
+    """Returns step(state, batch, split=None) -> (state, LossBreakdown).
+
+    The step updates ``state.model`` and its optimizer in place and returns
+    the batch's losses as 0-d tensors: total, cls, loc and dir are means
+    over the samples, num_pos is their sum.
+
+    remat: True/"all" checkpoints the PFN and every RPN block
+    (``torch.utils.checkpoint``), "pfn" or "rpn" one tier, False/"off"
+    none; the numbers are the same in every mode.
+
+    accum_steps > 1 splits the batch into that many equal microbatches,
+    sums their gradients, averages, and makes ONE optimizer update;
+    BatchNorm moments are per microbatch, and the running statistics take
+    one momentum update per microbatch, as in the JAX package.
+
+    assigner: (gt_boxes, gt_classes, gt_valid) -> batched Targets; the
+    windowed assigner (K5) by default.
+
+    split: a dict that receives the step's synchronised host-clock split
+    in ms (frontend, assign, forward, backward, optimizer)."""
+    remat_pfn, remat_rpn = remat_flags(remat)
+    assign_b = assigner or make_windowed_assigner(config, max_gt_per_class)
+
+    def grads_of(model, batch: TrainBatch, phases: _Phases):
+        with torch.no_grad():
+            table, meta = emit_centered_table(batch.points, batch.num_points,
+                                              config)
+        phases.mark("frontend")
+        targets = assign_b(batch.gt_boxes, batch.gt_classes, batch.gt_valid)
+        phases.mark("assign")
+        p = model.pfn
+
+        def pfn_feats(w, scale, bias):
+            return pfn_train_from_table(table, meta, w, scale, bias, config)
+
+        with full_fp32():
+            args = (p.kernel, p.bn.weight, p.bn.bias)
+            feats, pid, cnt, b_mean, b_var = (
+                checkpoint(pfn_feats, *args, use_reentrant=False)
+                if remat_pfn else pfn_feats(*args))
+            canvas = scatter_to_bev_diff(feats, pid, cnt > 0.0, config)
+            feat, moments = model.train_features_from_canvas(canvas,
+                                                             remat_rpn)
+            cls_fm, box_fm, dir_fm = model.head.feature_major(feat)
+            losses = detection_loss_fm(cls_fm, box_fm, dir_fm, targets,
+                                       config)
+            total = losses.total.mean()
+            phases.mark("forward")
+            total.backward()
+        phases.mark("backward")
+        # the running statistics: once per (micro)batch, here and only here
+        p.bn.update_running(b_mean.detach(), b_var.detach())
+        for bn, (mean, var) in zip(model.rpn.batch_norms(), moments):
+            bn.update_running(mean.detach(), var.detach())
+        return LossBreakdown(total.detach(), losses.cls.detach().mean(),
+                             losses.loc.detach().mean(),
+                             losses.dir.detach().mean(),
+                             losses.num_pos.sum())
+
+    def train_step(state: TrainState, batch: TrainBatch,
+                   split: Optional[dict] = None):
+        model = state.model
+        phases = _Phases(split, batch.points.device)
+        for prm in model.parameters():
+            prm.grad = None
+        B = batch.points.shape[0]
+        if B % accum_steps:
+            raise ValueError(f"batch {B} not divisible by accum_steps "
+                             f"{accum_steps}")
+        mb = B // accum_steps
+        sums = None
+        for i in range(accum_steps):
+            micro = TrainBatch(*(x[i * mb:(i + 1) * mb] for x in batch))
+            losses = grads_of(model, micro, phases)
+            sums = losses if sums is None else LossBreakdown(
+                *(a + b for a, b in zip(sums, losses)))
+        if accum_steps > 1:
+            inv = 1.0 / accum_steps
+            with torch.no_grad():
+                for prm in model.parameters():
+                    prm.grad.mul_(inv)
+            # means of per-microbatch means are the batch means (equal
+            # microbatches); num_pos stays a batch sum
+            sums = LossBreakdown(sums.total * inv, sums.cls * inv,
+                                 sums.loc * inv, sums.dir * inv,
+                                 sums.num_pos)
+        state.optimizer.step()
+        state.step += 1
+        phases.mark("optimizer")
+        return state, sums
+
+    return train_step

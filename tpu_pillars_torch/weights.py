@@ -1,11 +1,13 @@
-"""Carry weights across from the JAX package: flax checkpoints -> the port's
-state dict, with no msgpack package and no JAX.
+"""Carry weights across from and to the JAX package: flax checkpoints <->
+the port's state dict, with no msgpack package and no JAX.
 
 A flax checkpoint (``flax.serialization.to_bytes``) is a msgpack map of
 maps whose leaves are msgpack ext type 1: a nested msgpack array
 ``(shape, dtype name, raw bytes)``. :func:`load_flax_msgpack` reads that
 with a small stdlib-only decoder; :func:`params_from_flax` maps the numpy
 tree (the same tree JAX's ``variables`` hold) onto the port's modules.
+:func:`flax_from_params` and :func:`flax_msgpack_bytes` go the other way,
+byte for byte as flax writes the same tree.
 """
 
 from __future__ import annotations
@@ -166,3 +168,136 @@ def params_from_flax(variables: dict, config: PillarsConfig) -> dict:
         sd[f"head.{name}.weight"] = _t(k).reshape(c, -1)
         sd[f"head.{name}.bias"] = _t(p["head"][name]["bias"])
     return sd
+
+
+def _np(t) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().cpu().numpy().astype(np.float32))
+
+
+def flax_from_params(state_dict: dict, config: PillarsConfig) -> dict:
+    """Inverse of :func:`params_from_flax`: the port's state dict ->
+    flax variables {'params', 'batch_stats'} as numpy, keys sorted at every
+    level (the order a jitted JAX state carries). Conv kernels go back to
+    (kh, kw, in, out); ConvTranspose kernels are permuted back and un-
+    flipped; the head kernels regain their (1, 1, C, out) conv shape."""
+    sd = state_dict
+    params: dict = {}
+    stats: dict = {}
+
+    def bn(prefix):
+        return ({"bias": _np(sd[f"{prefix}.bias"]),
+                 "scale": _np(sd[f"{prefix}.weight"])},
+                {"mean": _np(sd[f"{prefix}.running_mean"]),
+                 "var": _np(sd[f"{prefix}.running_var"])})
+
+    c = 3 * config.rpn_up_channels
+    params["head"] = {
+        name: {"bias": _np(sd[f"head.{name}.bias"]),
+               "kernel": _np(sd[f"head.{name}.weight"]).reshape(1, 1, c, -1)}
+        for name in ("box", "cls", "dir")}
+    pfn_bn, pfn_stats = bn("pfn.bn")
+    params["pfn"] = {"bn": pfn_bn, "linear": {"kernel": _np(sd["pfn.kernel"])}}
+    stats["pfn"] = {"bn": pfn_stats}
+    rpn_p: dict = {}
+    rpn_s: dict = {}
+    for i, n_layers in enumerate(config.rpn_layers):
+        blk_p: dict = {}
+        blk_s: dict = {}
+        for j in range(n_layers):
+            blk_p[f"bn{j}"], blk_s[f"bn{j}"] = bn(f"rpn.blocks.{i}.bns.{j}")
+            blk_p[f"conv{j}"] = {"kernel": np.ascontiguousarray(
+                _np(sd[f"rpn.blocks.{i}.convs.{j}"]).transpose(2, 3, 1, 0))}
+        rpn_p[f"block{i}"], rpn_s[f"block{i}"] = blk_p, blk_s
+        up_bn, up_s = bn(f"rpn.ups.{i}.bn")
+        deconv = _np(sd[f"rpn.ups.{i}.weight"]).transpose(2, 3, 0, 1)
+        rpn_p[f"up{i}"] = {"bn": up_bn, "deconv": {
+            "kernel": np.ascontiguousarray(deconv[::-1, ::-1])}}
+        rpn_s[f"up{i}"] = {"bn": up_s}
+    params["rpn"] = {k: rpn_p[k] for k in sorted(rpn_p)}
+    stats["rpn"] = {k: rpn_s[k] for k in sorted(rpn_s)}
+
+    def sort(tree):
+        if isinstance(tree, dict):
+            return {k: sort(tree[k]) for k in sorted(tree)}
+        return tree
+
+    return {"params": sort(params), "batch_stats": sort(stats)}
+
+
+def _pack(obj, out: list) -> None:
+    """msgpack encoding of dict / list / tuple / str / bytes / int /
+    ndarray (ext type 1, as flax writes arrays), smallest forms first, as
+    the msgpack package packs them."""
+    if isinstance(obj, dict):
+        n = len(obj)
+        out.append(bytes([0x80 | n]) if n < 16 else
+                   struct.pack(">BH", 0xDE, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xDF, n))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        n = len(obj)
+        out.append(bytes([0x90 | n]) if n < 16 else
+                   struct.pack(">BH", 0xDC, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xDD, n))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        n = len(raw)
+        out.append(bytes([0xA0 | n]) if n < 32 else
+                   struct.pack(">BB", 0xD9, n) if n < 1 << 8 else
+                   struct.pack(">BH", 0xDA, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xDB, n))
+        out.append(raw)
+    elif isinstance(obj, (bytes, bytearray)):
+        n = len(obj)
+        out.append(struct.pack(">BB", 0xC4, n) if n < 1 << 8 else
+                   struct.pack(">BH", 0xC5, n) if n < 1 << 16 else
+                   struct.pack(">BI", 0xC6, n))
+        out.append(bytes(obj))
+    elif isinstance(obj, (int, np.integer)) and not isinstance(obj, bool):
+        v = int(obj)
+        if 0 <= v < 0x80:
+            out.append(bytes([v]))
+        elif -32 <= v < 0:
+            out.append(struct.pack(">b", v))
+        elif v >= 0:
+            for code, fmt, lim in ((0xCC, "B", 1 << 8), (0xCD, "H", 1 << 16),
+                                   (0xCE, "I", 1 << 32), (0xCF, "Q", 1 << 64)):
+                if v < lim:
+                    out.append(struct.pack(">B" + fmt, code, v))
+                    break
+        else:
+            for code, fmt, lim in ((0xD0, "b", 1 << 7), (0xD1, "h", 1 << 15),
+                                   (0xD2, "i", 1 << 31), (0xD3, "q", 1 << 63)):
+                if v >= -lim:
+                    out.append(struct.pack(">B" + fmt, code, v))
+                    break
+    elif isinstance(obj, np.ndarray):
+        inner: list = []
+        _pack((tuple(obj.shape), obj.dtype.name, obj.tobytes("C")), inner)
+        data = b"".join(inner)
+        n = len(data)
+        fix = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fix:
+            out.append(struct.pack(">Bb", fix[n], _EXT_NDARRAY))
+        elif n < 1 << 8:
+            out.append(struct.pack(">BBb", 0xC7, n, _EXT_NDARRAY))
+        elif n < 1 << 16:
+            out.append(struct.pack(">BHb", 0xC8, n, _EXT_NDARRAY))
+        else:
+            out.append(struct.pack(">BIb", 0xC9, n, _EXT_NDARRAY))
+        out.append(data)
+    else:
+        raise TypeError(f"cannot msgpack-encode {type(obj).__name__}")
+
+
+def flax_msgpack_bytes(tree: dict) -> bytes:
+    """Encode a nested dict of numpy arrays the way
+    ``flax.serialization.to_bytes`` lays it out; :func:`load_flax_msgpack`
+    and flax's ``msgpack_restore`` read it back."""
+    out: list = []
+    _pack(tree, out)
+    return b"".join(out)
