@@ -7,7 +7,7 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda`` or ``CUDA_HOME``), and
 imports nothing of JAX. Phases; any failure exits non-zero before the last
 line:
 
-  1. Print the card (``nvidia-smi`` name and power limit) and build the five
+  1. Print the card (``nvidia-smi`` name and power limit) and build the nine
      CUDA kernels of ``tpu_pillars_torch/csrc`` from source.
   2. On a batch of 8 lidar-like sweeps of ~100k points at the full
      ``PillarsConfig()``, run each kernel and its plain PyTorch version on
@@ -17,6 +17,10 @@ line:
      threshold. K5 (the target assigner) on the training batch's GT, the
      golden GT and a crowded 16-per-class GT set: best IoU within 2e-5, the
      best GT equal wherever the IoU is positive and not tied within 2e-5.
+     On the classic front end's inputs of the same batch: K6 PFN within
+     atol 1e-5 / rtol 1e-5; K10 bitonic sort bit-equal to its plain network
+     and to the stable ``torch.sort``; K8 binning rank and histogram equal;
+     K9 block gather bit-equal to its plain version and to K3's canvas.
      Times each (CUDA events, median), with its bound and, where one
      PyTorch call computes the same function, that call's time.
   3. The serving path: ``Detector.from_checkpoint`` on the committed
@@ -25,6 +29,12 @@ line:
      ``scripts/make_torch_golden.py`` from the JAX package) must reproduce
      the JAX detections; ``predict_packed_batch`` at batch 8 is timed by
      stage. K1-K4 must have launched during these calls.
+     3b. The classic front end (``fused_frontend=False``): the same golden
+     check and stage split; K1, K6, K3 and K4 must have launched, K2 not.
+     3c. The drop-ins on the batch: the bitonic sort equals the stable
+     sort, the binned pillarizer equals the classic ``PillarBatch``, and K6
+     on it then K9 equals the classic canvas bit for bit; K10, K8 and K9
+     must have launched.
   4. The training path: on the golden batch of
      ``tests/data/torch_train_golden_synth4k.npz`` (written by
      ``scripts/make_torch_train_golden.py`` from the JAX package) the port's
@@ -36,8 +46,10 @@ line:
      memory and a synchronised split. K1, K3 and K5 must have launched
      during the training steps.
 
-The line before the last is a JSON object ``{"kernels": [...]}``; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object ``{"kernels": [...]}``, each
+kernel with its launches on the path that runs it (serving: K1-K4, classic
+serving: K6, drop-ins: K8-K10, training: K5); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -135,6 +147,7 @@ def bound(n_bytes: float, n_ops: float):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "tpu_pillars_torch")):
         fail(f"no tpu_pillars_torch package beside {__file__}")
     import numpy as np
@@ -146,7 +159,7 @@ def main() -> None:
 
     from tpu_pillars_torch import _build
     from tpu_pillars_torch.config import PillarsConfig
-    from tpu_pillars_torch.detector import Detector, packed_to_boxes
+    from tpu_pillars_torch.detector import Detector
     from tpu_pillars_torch.ops import bev, emit, fused_pfn, nms_overlap
     from tpu_pillars_torch.ops.voxelize import sort_points_by_pillar
     from tpu_pillars_torch.train.loop import synthetic_batches
@@ -217,7 +230,8 @@ def main() -> None:
         bound=bound(n_valid * (4 + 4 * F) + table.numel() * 4
                     + meta.numel() * 4, 0.0))
 
-    w_eff, w_dec = fused_pfn.fold_decoration(det._pfn_w, det._pfn_b, cfg)
+    w_pfn, b_pfn = det.model.pfn.folded()
+    w_eff, w_dec = fused_pfn.fold_decoration(w_pfn, b_pfn, cfg)
     args2 = (table, meta, w_eff, w_dec, cfg)
     feats, pid, cnt2 = fused_pfn.pfn_from_table(*args2)
     feats_p, pid_p, _ = fused_pfn.pfn_from_table_plain(*args2)
@@ -240,14 +254,7 @@ def main() -> None:
     canvas_p = bev.scatter_to_bev_plain(*args3)
     if not torch.equal(canvas, canvas_p):
         fail("K3 BEV scatter differs from its plain version")
-    flat_idx = (pid.long() + torch.arange(BATCH, device=dev)[:, None] * HW)[
-        mask]
-    src = feats[mask]
-
-    def library_scatter():
-        return torch.zeros((BATCH * HW, C), device=dev).index_copy_(
-            0, flat_idx, src)
-
+    library_scatter = index_copy_scatter(feats, pid, mask, HW)
     if not torch.equal(library_scatter().reshape(canvas.shape), canvas):
         fail("K3 yardstick index_copy_ differs from the kernel")
     rows["bev_scatter"] = dict(
@@ -318,24 +325,15 @@ def main() -> None:
                     pairs * K4_OPS_GATE + hot * K4_OPS_HOT))
     del canvas_p, over_p, feats_p, table_p, meta_p
     torch.cuda.empty_cache()
+    classic_rows(cfg, points, counts, w_pfn, b_pfn, rows)
 
     # ---- phase 3: the serving path
     golden = np.load(GOLDEN)
-    offs = golden["offsets"]
-    golden_clouds = [golden["points"][offs[s]:offs[s + 1]]
-                     for s in range(len(offs) - 1)]
     _build.reset_launches()
-    n_boxes = 0
-    for s, cloud in enumerate(golden_clouds):
-        got = det.predict(cloud)
-        want = packed_to_boxes(golden["packed"][s], cfg)
-        check_boxes(got, want, s)
-        n_boxes += len(got)
+    golden_check(det, golden, "fused")
     out = det.predict_packed_batch(points, counts)
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
-    print(f"golden: {len(golden_clouds)} scenes, {n_boxes} boxes match the "
-          f"JAX detections")
     print(f"launches on the serving path: {launches}")
     for name in ("emit", "fused_pfn", "bev_scatter", "nms_overlap"):
         if launches[name] == 0:
@@ -348,7 +346,33 @@ def main() -> None:
         fail("the batch call detected nothing")
 
     stage_split(det, points, counts, clouds)
-    del det, points, counts, out
+    del det, out
+    torch.cuda.empty_cache()
+
+    # ---- phase 3b: the classic serving path
+    det_c = Detector.from_checkpoint(cfg, CKPT, fused_frontend=False)
+    if det_c.fused_frontend:
+        fail("Detector(fused_frontend=False) took the fused front end")
+    _build.reset_launches()
+    golden_check(det_c, golden, "classic")
+    out = det_c.predict_packed_batch(points, counts)
+    torch.cuda.synchronize()
+    classic = dict(_build.LAUNCHES)
+    print(f"launches on the classic serving path: {classic}")
+    for name in ("emit", "pfn", "bev_scatter", "nms_overlap"):
+        if classic[name] == 0:
+            fail(f"kernel {name} did not launch on the classic path")
+    if classic["fused_pfn"]:
+        fail("K2 launched on the classic path")
+    out = out.cpu().numpy()
+    if not np.isfinite(out).all() or out[..., 9].sum() == 0:
+        fail("the classic batch call gave no finite detections")
+    launches["pfn"] = classic["pfn"]
+    stage_split(det_c, points, counts, clouds, "classic")
+
+    # ---- phase 3c: the drop-ins at full width, on the serving batch
+    launches.update(drop_ins(cfg, det_c, points, counts, w_pfn, b_pfn))
+    del det_c, points, counts
     torch.cuda.empty_cache()
 
     # ---- phase 4: the training path
@@ -361,14 +385,15 @@ def main() -> None:
     # serving path's counts
     launches["assign"] = train_launches["assign"]
 
-    sources = {"emit": "emit.cu", "fused_pfn": "fused_pfn.cu",
-               "bev_scatter": "bev_scatter.cu",
-               "nms_overlap": "nms_overlap.cu", "assign": "assign.cu"}
     replaces = {"emit": "tpu_pillars/ops/emit_pallas.py:113",
                 "fused_pfn": "tpu_pillars/ops/fused_pfn.py:102",
                 "bev_scatter": "tpu_pillars/ops/bev_pallas.py:330",
                 "nms_overlap": "tpu_pillars/ops/nms_pallas.py:82",
-                "assign": "tpu_pillars/ops/assign_pallas.py:143"}
+                "assign": "tpu_pillars/ops/assign_pallas.py:143",
+                "pfn": "tpu_pillars/ops/pfn_pallas.py:35",
+                "bitonic_sort": "tpu_pillars/ops/sort_pallas.py:80",
+                "binning": "tpu_pillars/ops/binning_pallas.py:69",
+                "bev_gather": "tpu_pillars/ops/bev_pallas.py:62"}
     kernels = []
     for name, r in rows.items():
         b_ms, b_by = r["bound"]
@@ -380,11 +405,12 @@ def main() -> None:
               f"{train_launches.get(name, 0)} in the remat-all training run")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"tpu_pillars_torch/csrc/{sources[name]}",
+            "source": f"tpu_pillars_torch/csrc/{name}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["library_ms"]})
+    print(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -659,6 +685,168 @@ def train_fit(cfg, dev, remat):
     return launches
 
 
+def index_copy_scatter(feats, pid, mask, hw):
+    """The yardstick of K3 and K9: one ``index_copy_`` of the valid pillar
+    rows into a zeroed flat canvas (returns the call, to be timed)."""
+    import torch
+
+    B, _, C = feats.shape
+    flat_idx = (pid.long() + torch.arange(B, device=feats.device)[:, None]
+                * hw)[mask]
+    src = feats[mask]
+    return lambda: torch.zeros((B * hw, C), device=feats.device).index_copy_(
+        0, flat_idx, src)
+
+
+def classic_rows(cfg, points, counts, w_pfn, b_pfn, rows):
+    """K6, K10, K8 and K9 against their plain versions on the classic front
+    end's inputs of the serving batch; adds their rows."""
+    import torch
+
+    from tpu_pillars_torch.ops import bev, binning, emit, pfn, sort, voxelize
+
+    B, M, F = points.shape
+    C = cfg.pfn_channels
+    H, W = cfg.grid_h, cfg.grid_w
+    HW = H * W
+
+    # K6 on the classic PillarBatch
+    pb = emit.pillarize_batch_emit(points, counts, cfg)
+    _, P, N, D = pb.features.shape
+    args6 = (pb.features.reshape(B * P, N, D), pb.mask.reshape(B * P, N),
+             w_pfn, b_pfn)
+    feats = pfn.pfn_fused(*args6)
+    feats_p = pfn.pfn_fused_plain(*args6)
+    err6 = (feats - feats_p).abs().max().item()
+    if not torch.allclose(feats, feats_p, atol=1e-5, rtol=1e-5):
+        fail(f"K6 PFN differs from its plain version: max |d| {err6:.3e}")
+    slots = int(pb.mask.sum())
+    print(f"K6: {slots} valid slots of {B * P * N}, max |d| {err6:.3e}")
+    rows["pfn"] = dict(
+        err=err6, ms=cuda_ms(lambda: pfn.pfn_fused(*args6), 20),
+        plain_ms=cuda_ms(lambda: pfn.pfn_fused_plain(*args6), 3),
+        library_ms=None,
+        bound=bound(args6[1].numel() + slots * D * 4
+                    + (D + 1) * C * 4 + feats.numel() * 4,
+                    2.0 * slots * D * C))
+    del feats_p
+
+    # K10 on the serving batch's pillar ids and points
+    pid = voxelize.pillar_ids(points, counts, cfg)
+    got = sort.bitonic_sort(pid, points)
+    plain = sort.bitonic_sort_plain(pid, points)
+
+    def library_sort():
+        key, order = torch.sort(pid, dim=1, stable=True)
+        return key, order, torch.gather(points, 1,
+                                        order[..., None].expand(-1, -1, F))
+
+    lib = library_sort()
+    for name, want in (("its plain network", plain),
+                       ("the stable torch.sort", lib)):
+        if not all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, want)):
+            fail(f"K10 bitonic sort differs from {name}")
+    print("K10: keys, order and payload bit-equal to the plain network and "
+          "to the stable torch.sort")
+    rows["bitonic_sort"] = dict(
+        err=0.0, ms=cuda_ms(lambda: sort.bitonic_sort(pid, points), 20),
+        plain_ms=cuda_ms(lambda: sort.bitonic_sort_plain(pid, points), 3),
+        library_ms=cuda_ms(library_sort, 20),
+        bound=bound(B * M * (4 + 4 * F) * 2 + B * M * 4,
+                    B * M * math.log2(M)))
+    del plain, lib
+
+    # K8 on the serving batch's cells
+    w_pad = binning.padded_width(cfg)
+    r, c = binning.cell_rows_cols(points, counts, cfg)
+    rank, hist = binning.rank_and_hist(r, c, H, w_pad)
+    rank_p, hist_p = binning.rank_and_hist_plain(r, c, H, w_pad)
+    if not (torch.equal(hist, hist_p) and torch.equal(rank, rank_p)):
+        fail("K8 rank or histogram differs from its plain version")
+    print(f"K8: rank and histogram equal to the plain version; "
+          f"{int((rank_p >= 64).sum())} points at rank >= 64, "
+          f"{int((hist_p > 0).sum())} occupied cells")
+    rows["binning"] = dict(
+        err=0.0, ms=cuda_ms(lambda: binning.rank_and_hist(r, c, H, w_pad), 5),
+        plain_ms=cuda_ms(lambda: binning.rank_and_hist_plain(r, c, H, w_pad),
+                         3),
+        library_ms=None,
+        bound=bound(B * M * 12 + hist.numel() * 4, 0.0))
+
+    # K9 on K6's features of the classic batch
+    feats = feats.reshape(B, P, C)
+    pid9 = (pb.coords[..., 0] * W + pb.coords[..., 1]).to(torch.int32)
+    mask9 = pb.pillar_mask
+    canvas = bev.scatter_to_bev_emit(feats, pid9, mask9, cfg)
+    if not torch.equal(canvas, bev.scatter_to_bev_emit_plain(feats, pid9,
+                                                             mask9, cfg)):
+        fail("K9 block gather differs from its plain version")
+    if not torch.equal(canvas, bev.scatter_to_bev(feats, pid9, mask9, cfg)):
+        fail("K9 block gather differs from K3's canvas")
+    library_scatter = index_copy_scatter(feats, pid9, mask9, HW)
+    if not torch.equal(library_scatter().reshape(canvas.shape), canvas):
+        fail("K9 yardstick index_copy_ differs from the kernel")
+    n_pillars = int(mask9.sum())
+    print(f"K9: canvas bit-equal to its plain version and to K3's "
+          f"({n_pillars} pillars)")
+    rows["bev_gather"] = dict(
+        err=0.0,
+        ms=cuda_ms(lambda: bev.scatter_to_bev_emit(feats, pid9, mask9, cfg),
+                   20),
+        plain_ms=cuda_ms(lambda: bev.scatter_to_bev_emit_plain(
+            feats, pid9, mask9, cfg), 5),
+        library_ms=cuda_ms(library_scatter, 20),
+        bound=bound(n_pillars * C * 4 + B * P * 5 + canvas.numel() * 4,
+                    0.0))
+    del pb, feats, canvas
+    torch.cuda.empty_cache()
+
+
+def drop_ins(cfg, det_c, points, counts, w_pfn, b_pfn):
+    """The three drop-ins at full width on the serving batch, against the
+    classic path: the bitonic sort (K10), the binned pillarizer (K8) and
+    K6 then the block gather (K9). Returns their launches."""
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.ops import bev, binning, emit, pfn, sort, voxelize
+
+    want_sort = voxelize.sort_points_by_pillar(points, counts, cfg)
+    want_batch = emit.pillarize_batch_emit(points, counts, cfg)
+    want_canvas = det_c.canvas(points, counts)
+    torch.cuda.synchronize()
+
+    _build.reset_launches()
+    got_sort = sort.sort_points_by_pillar_bitonic(points, counts, cfg)
+    batch = binning.pillarize_batch_binned(points, counts, cfg)
+    B, P, N, D = batch.features.shape
+    feats = pfn.pfn_fused(batch.features.reshape(B * P, N, D),
+                          batch.mask.reshape(B * P, N), w_pfn, b_pfn)
+    pid = (batch.coords[..., 0] * cfg.grid_w
+           + batch.coords[..., 1]).to(torch.int32)
+    canvas = bev.scatter_to_bev_emit(feats.reshape(B, P, -1), pid,
+                                     batch.pillar_mask, cfg)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"launches on the drop-in path: {launches}")
+    if not all(torch.equal(a, b) for a, b in zip(got_sort, want_sort)):
+        fail("sort_points_by_pillar_bitonic differs from the stable sort")
+    for name in batch._fields:
+        if not torch.equal(getattr(batch, name), getattr(want_batch, name)):
+            fail(f"pillarize_batch_binned differs from the classic "
+                 f"PillarBatch in {name}")
+    if not torch.equal(canvas, want_canvas):
+        fail("K6 on the binned batch, then K9, differs from the classic "
+             "canvas")
+    for name in ("bitonic_sort", "binning", "bev_gather"):
+        if launches[name] == 0:
+            fail(f"kernel {name} did not launch on the drop-in path")
+    print("drop-ins: the bitonic sort equals the stable sort, the binned "
+          "PillarBatch equals the classic one in every field, and K6 then "
+          "K9 on it give the classic canvas bit for bit")
+    return {k: launches[k] for k in ("bitonic_sort", "binning", "bev_gather")}
+
+
 def overlap_iou64(a, b):
     """Float64 rotated BEV IoU of box pairs a[n], b[n] (polygon clipping),
     the referee for pairs where kernel and plain version disagree."""
@@ -706,11 +894,13 @@ def overlap_iou64(a, b):
 
 def check_boxes(got, want, scene):
     """The tolerance of the JAX package's trained-weights parity test:
-    same count and labels, score 1e-3, centre and size 1e-2 m, yaw 1e-2."""
+    same count and labels, score 1e-3, centre and size 1e-2 m, yaw 1e-2.
+    Returns the largest score, centre and yaw deviations."""
     import numpy as np
 
     if len(got) != len(want):
         fail(f"golden scene {scene}: {len(got)} boxes, JAX has {len(want)}")
+    worst = np.zeros(3)
     for k, (g, w) in enumerate(zip(got, want)):
         dyaw = abs((g.yaw - w.yaw + math.pi) % (2 * math.pi) - math.pi)
         if (g.label != w.label or abs(g.score - w.score) > 1e-3
@@ -718,9 +908,32 @@ def check_boxes(got, want, scene):
                 or not np.allclose(g.wlh, w.wlh, rtol=0, atol=1e-2)
                 or dyaw > 1e-2):
             fail(f"golden scene {scene} box {k}: {g} vs JAX {w}")
+        dev = (abs(g.score - w.score),
+               float(np.abs(np.asarray(g.center) - w.center).max()), dyaw)
+        worst = np.maximum(worst, dev)
+    return worst
 
 
-def stage_split(det, points, counts, clouds):
+def golden_check(det, golden, label):
+    """``det.predict`` on every golden scene against the JAX detections
+    (:func:`check_boxes`); prints the worst deviations."""
+    import numpy as np
+
+    from tpu_pillars_torch.detector import packed_to_boxes
+
+    offs = golden["offsets"]
+    n_boxes, worst = 0, np.zeros(3)
+    for s in range(len(offs) - 1):
+        got = det.predict(golden["points"][offs[s]:offs[s + 1]])
+        want = packed_to_boxes(golden["packed"][s], det.config)
+        worst = np.maximum(worst, check_boxes(got, want, s))
+        n_boxes += len(got)
+    print(f"golden ({label} front end): {len(offs) - 1} scenes, {n_boxes} "
+          f"boxes match the JAX detections; worst |d score| {worst[0]:.3e}, "
+          f"|d centre| {worst[1]:.3e} m, |d yaw| {worst[2]:.3e} rad")
+
+
+def stage_split(det, points, counts, clouds, label="fused"):
     """Host-clock split of one batch-8 call (synchronised after each stage),
     median of 5, and the end-to-end rate from numpy clouds to host boxes."""
     import numpy as np
@@ -754,10 +967,10 @@ def stage_split(det, points, counts, clouds):
                                   total)):
             split[key].append(v)
     med = {k: float(np.median(v[1:])) for k, v in split.items()}
-    print(f"stage split, batch {len(clouds)} (host clock, ms): "
-          + json.dumps(med))
-    print(f"end to end: {len(clouds) / med['total_ms'] * 1e3:.2f} sweeps/s "
-          f"at batch {len(clouds)}")
+    print(f"stage split ({label} front end), batch {len(clouds)} (host "
+          f"clock, ms): " + json.dumps(med))
+    print(f"end to end ({label}): {len(clouds) / med['total_ms'] * 1e3:.2f} "
+          f"sweeps/s at batch {len(clouds)}")
 
 
 if __name__ == "__main__":

@@ -15,8 +15,9 @@ generator seed 7100). Writes ``tests/data/torch_golden_synth4k.npz``:
   packed   (8, 256, 10) f32 — ``Detector.predict_packed`` per scene
            [x, y, z, w, l, h, yaw, score, class, valid]
 
-``chip_smoke.py`` holds the port on the card against this file, and
-``tests/test_torch_detector.py`` holds the port on the CPU against it.
+``chip_smoke.py`` holds the port's fused and classic front ends on the card
+against this file, and ``tests/test_torch_detector.py`` (fused) and
+``tests/test_torch_classic.py`` (classic) hold them on the CPU against it.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ JAX package, so it also runs on a machine that has neither:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 K1 emit and K3 scatter are held bit for bit, K3's backward too; K2 fused
-PFN to atol 1e-5, rtol 1e-5 (both sides round the same f32 operations in
-the same order; the kernel is built without fused multiply-adds); K4
+PFN and K6 PFN to atol 1e-5, rtol 1e-5 (both sides round the same f32
+operations in the same order; the kernels are built without fused
+multiply-adds); K10 bitonic sort, K8 binning and K9 block gather bit for
+bit (K10 also against the stable torch.sort, K9 against K3); K4
 overlap equal except pairs whose IoU lies within 1e-4 of the threshold; K5
 best IoU within 2e-5 and the best GT equal wherever the IoU is positive and
 not tied within 2e-5; the detector's packed output on the card against the
@@ -25,10 +27,12 @@ from tpu_pillars_torch import config as tconfig
 from tpu_pillars_torch.detector import Detector
 from tpu_pillars_torch.models.pointpillars import PointPillars
 from tpu_pillars_torch.ops import (
-    assign, bev, emit, fused_pfn, iou, nms_overlap,
+    assign, bev, binning, emit, fused_pfn, iou, nms_overlap, pfn, sort,
 )
 from tpu_pillars_torch.ops.target_assigner import group_gt_by_class
-from tpu_pillars_torch.ops.voxelize import sort_points_by_pillar
+from tpu_pillars_torch.ops.voxelize import (
+    pillarize_batch, sort_points_by_pillar,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -167,6 +171,138 @@ def test_wrappers_refuse_wrong_inputs(dev):
         emit.emit_table(gid, pts, 4, 4, 16)
     with pytest.raises(ValueError):
         nms_overlap.overlap_matrix(torch.zeros((4, 7), device=dev), 0.2)
+    feats = torch.zeros((5, 4, 9), device=dev)
+    mask = torch.ones((5, 4), dtype=torch.bool, device=dev)
+    w, b = torch.zeros((9, 8), device=dev), torch.zeros(8, device=dev)
+    with pytest.raises(TypeError):
+        pfn.pfn_fused(feats, mask.float(), w, b)
+    with pytest.raises(ValueError):
+        pfn.pfn_fused(feats, mask, w[:8], b)
+    with pytest.raises(ValueError):
+        pfn.pfn_fused(feats, mask, w.cpu(), b.cpu())
+    with pytest.raises(TypeError):
+        sort.bitonic_sort(gid)
+    with pytest.raises(ValueError):
+        sort.bitonic_sort(gid.int(), pts[:, :4])
+    with pytest.raises(TypeError):
+        binning.rank_and_hist(gid, gid, 8, 128)
+    with pytest.raises(ValueError):
+        binning.rank_and_hist(gid.int(), gid.int().cpu(), 8, 128)
+    pid = torch.zeros((1, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        bev.scatter_to_bev_emit(pts, pid, pid, CFG)
+    with pytest.raises(ValueError):
+        bev.scatter_to_bev_emit(pts, pid[:, :4], pid.bool(), CFG)
+
+
+def _classic_batch(case, dev):
+    cfg, make = CASES[case]
+    pts, ns = make(np.random.default_rng(0))
+    return cfg, emit.pillarize_batch_emit(torch.from_numpy(pts).to(dev),
+                                          torch.from_numpy(ns).to(dev), cfg)
+
+
+@pytest.mark.parametrize("case", ["random", "one_cell", "multisweep_f5"])
+def test_pfn_kernel_matches_plain(dev, case):
+    _, batch = _classic_batch(case, dev)
+    B, P, N, D = batch.features.shape
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy((rng.normal(size=(D, 64)) * 0.3).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(64,)).astype(np.float32))
+    args = (batch.features.reshape(B * P, N, D), batch.mask.reshape(B * P, N),
+            w.to(dev), b.to(dev))
+    before = _build.LAUNCHES["pfn"]
+    got = pfn.pfn_fused(*args)
+    assert _build.LAUNCHES["pfn"] == before + 1
+    want = pfn.pfn_fused_plain(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert not got[~batch.pillar_mask.reshape(-1)].any()
+
+
+def test_pfn_kernel_skips_masked_rows(dev):
+    """A mask with holes, and NaN in every masked slot: the kernel uses no
+    masked row, so it still agrees with the plain version."""
+    rng = np.random.default_rng(3)
+    P, N, D, C = 1003, 32, 9, 64
+    mask = rng.uniform(size=(P, N)) < 0.3
+    mask[:17] = False
+    feats = rng.normal(size=(P, N, D)).astype(np.float32)
+    feats[~mask] = np.nan
+    w = (rng.normal(size=(D, C)) * 0.3).astype(np.float32)
+    b = rng.normal(size=(C,)).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (feats, mask, w, b)]
+    got = pfn.pfn_fused(*args)
+    want = pfn.pfn_fused_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    assert not got[:17].any()
+
+
+@pytest.mark.parametrize("m", [1, 1536, 4096, 20000])
+def test_bitonic_kernel_bit_equal(dev, m):
+    """M = 20,000 pads to 32,768: global passes above the 4,096 tile."""
+    rng = np.random.default_rng(m)
+    key = torch.from_numpy(rng.integers(-5, 50, (3, m)).astype(np.int32))
+    key[0, :3] = 2**31 - 1
+    pay = torch.from_numpy(rng.normal(size=(3, m, 4)).astype(np.float32))
+    key, pay = key.to(dev), pay.to(dev)
+    before = _build.LAUNCHES["bitonic_sort"]
+    got = sort.bitonic_sort(key, pay)
+    assert _build.LAUNCHES["bitonic_sort"] == before + 1
+    want = sort.bitonic_sort_plain(key, pay)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    ref_k, ref_o = torch.sort(key, dim=1, stable=True)
+    assert torch.equal(got[0], ref_k) and torch.equal(got[1].long(), ref_o)
+    k2, o2, p2 = sort.bitonic_sort(key)
+    assert p2 is None and torch.equal(k2, got[0]) and torch.equal(o2, got[1])
+
+
+@pytest.mark.parametrize("case", ["random", "one_cell", "budget", "empty"])
+def test_binning_kernel_bit_equal(dev, case):
+    cfg, make = CASES[case]
+    pts, ns = make(np.random.default_rng(0))
+    pts, ns = torch.from_numpy(pts).to(dev), torch.from_numpy(ns).to(dev)
+    rows, cols = binning.cell_rows_cols(pts, ns, cfg)
+    w_pad = binning.padded_width(cfg)
+    before = _build.LAUNCHES["binning"]
+    got = binning.rank_and_hist(rows, cols, cfg.grid_h, w_pad)
+    assert _build.LAUNCHES["binning"] == before + 1
+    want = binning.rank_and_hist_plain(rows, cols, cfg.grid_h, w_pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "one_cell":
+        assert (want[0] == 64).any()
+    got_b = binning.pillarize_batch_binned(pts, ns, cfg)
+    want_b = pillarize_batch(pts, ns, cfg)
+    for name in want_b._fields:
+        assert torch.equal(getattr(got_b, name), getattr(want_b, name)), name
+
+
+@pytest.mark.parametrize("case", ["random", "budget", "dense", "empty"])
+def test_bev_gather_kernel_bit_equal(dev, case):
+    if case == "dense":
+        cfg = CFG
+        pid = torch.arange(cfg.max_pillars, dtype=torch.int32,
+                           device=dev).expand(2, -1).contiguous()
+        mask = torch.ones_like(pid, dtype=torch.bool)
+    else:
+        cfg, batch = _classic_batch(case, dev)
+        pid = (batch.coords[..., 0] * cfg.grid_w
+               + batch.coords[..., 1]).to(torch.int32)
+        mask = batch.pillar_mask
+    gen = torch.Generator(dev).manual_seed(2)
+    for c in (64, 30):                      # 16-byte and scalar stores
+        feats = torch.randn(pid.shape + (c,), device=dev, generator=gen)
+        before = _build.LAUNCHES["bev_gather"]
+        got = bev.scatter_to_bev_emit(feats, pid, mask, cfg)
+        assert _build.LAUNCHES["bev_gather"] == before + 1
+        want = bev.scatter_to_bev_emit_plain(feats, pid, mask, cfg)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert torch.equal(got, bev.scatter_to_bev(feats, pid, mask, cfg))
 
 
 def _random_state_dict(cfg, seed):
@@ -204,6 +340,25 @@ def test_detector_on_card_matches_cpu(dev):
     np.testing.assert_allclose(got[..., :6], want[..., :6], atol=5e-3)
     dyaw = (got[..., 6] - want[..., 6] + np.pi) % (2 * np.pi) - np.pi
     assert np.abs(dyaw).max() < 5e-3
+
+
+@pytest.mark.parametrize("use_pallas_pfn", [True, False])
+def test_classic_detector_on_card_matches_cpu(dev, use_pallas_pfn):
+    sd = _random_state_dict(CFG, 5)
+    pts, ns = _cloud(np.random.default_rng(2), [3000, 1500])
+    kw = dict(fused_frontend=False, use_pallas_pfn=use_pallas_pfn)
+    _build.reset_launches()
+    got = Detector(CFG, sd, **kw).predict_packed_batch(pts, ns).cpu().numpy()
+    assert _build.LAUNCHES["pfn"] == int(use_pallas_pfn)
+    assert _build.LAUNCHES["fused_pfn"] == 0
+    assert all(_build.LAUNCHES[n] == 1
+               for n in ("emit", "bev_scatter", "nms_overlap"))
+    want = Detector(CFG, sd, device="cpu", **kw).predict_packed_batch(
+        pts, ns).numpy()
+    np.testing.assert_array_equal(got[..., 9], want[..., 9])
+    np.testing.assert_array_equal(got[..., 8], want[..., 8])
+    np.testing.assert_allclose(got[..., 7], want[..., 7], atol=1e-4)
+    np.testing.assert_allclose(got[..., :6], want[..., :6], atol=5e-3)
 
 
 def test_scatter_backward_bit_equal(dev):

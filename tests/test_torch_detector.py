@@ -22,7 +22,7 @@ import torch
 from tpu_pillars.config import tiny_config
 from tpu_pillars.data.synthetic import make_scene
 from tpu_pillars.detector import Detector as JaxDetector
-from torch_port_util import random_variables
+from torch_port_util import assert_packed_close, random_variables
 from tpu_pillars_torch import config as tconfig
 from tpu_pillars_torch import detector as tdet
 from tpu_pillars_torch.weights import params_from_flax
@@ -30,20 +30,6 @@ from tpu_pillars_torch.weights import params_from_flax
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_synth4k.npz")
 ARTIFACT = os.path.join(ROOT, "artifacts", "pointpillars_synth4k.msgpack")
-
-
-def _assert_packed_close(got, want, score_tol, geo_tol):
-    """Row-for-row (D, 10) packed detections: same valid rows and classes,
-    scores / centres / sizes / yaws within the tolerances."""
-    np.testing.assert_array_equal(got[:, 9], want[:, 9])
-    n = int(want[:, 9].sum())
-    g, w = got[:n], want[:n]
-    np.testing.assert_array_equal(g[:, 8], w[:, 8])
-    np.testing.assert_allclose(g[:, 7], w[:, 7], atol=score_tol)
-    np.testing.assert_allclose(g[:, :6], w[:, :6], atol=geo_tol)
-    dyaw = (g[:, 6] - w[:, 6] + np.pi) % (2 * np.pi) - np.pi
-    assert np.abs(dyaw).max(initial=0.0) < geo_tol
-    return n
 
 
 def test_whole_slice_matches_jax_fused_pallas(rng):
@@ -62,7 +48,7 @@ def test_whole_slice_matches_jax_fused_pallas(rng):
                                                 jnp.asarray(ns)))
     got = tdet_.predict_packed_batch(pts, ns).numpy()
     assert got.shape == want.shape == (2, cfg.max_detections, 10)
-    total = sum(_assert_packed_close(got[b], want[b], 1e-4, 5e-3)
+    total = sum(assert_packed_close(got[b], want[b], 1e-4, 5e-3)
                 for b in range(2))
     assert total > 0
 
@@ -111,7 +97,7 @@ def test_golden_trained_checkpoint_cpu():
     offs = golden["offsets"]
     for s in (0, 1):
         got = port.predict_packed(golden["points"][offs[s]:offs[s + 1]])
-        n = _assert_packed_close(got.numpy(), golden["packed"][s], 1e-3,
+        n = assert_packed_close(got.numpy(), golden["packed"][s], 1e-3,
                                  1e-2)
         assert n > 0
 
@@ -149,7 +135,8 @@ def test_port_imports_no_jax():
     assert len(files) > 15
     rel = {os.path.relpath(f, ROOT) for f in files}
     for module in ("data/synthetic.py", "train/loop.py", "train/step.py",
-                   "train/state.py", "train/checkpoint.py", "ops/assign.py"):
+                   "train/state.py", "train/checkpoint.py", "ops/assign.py",
+                   "ops/pfn.py", "ops/sort.py", "ops/binning.py"):
         assert os.path.join("tpu_pillars_torch", module) in rel, module
     for path in files:
         for mod in _imports(path):

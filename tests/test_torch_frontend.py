@@ -14,6 +14,7 @@ from tpu_pillars.ops import emit_pallas as jemit
 from tpu_pillars.ops import fused_pfn as jfused
 from tpu_pillars.ops import voxelize as jvox
 from tpu_pillars.ops.bev_pallas import scatter_to_bev_ring
+from torch_port_util import cloud_batch, dense_cell_batch
 from tpu_pillars_torch import config as tconfig
 from tpu_pillars_torch.ops import bev as tbev
 from tpu_pillars_torch.ops import emit as temit
@@ -25,27 +26,11 @@ TCFG = tconfig.tiny_config()
 
 
 def _cloud(rng, ns, cfg=CFG, f=4, margin=2.0):
-    pts = np.full((len(ns), cfg.max_points, f), 1e6, dtype=np.float32)
-    for i, n in enumerate(ns):
-        pts[i, :n, 0] = rng.uniform(cfg.x_min - margin, cfg.x_max + margin, n)
-        pts[i, :n, 1] = rng.uniform(cfg.y_min - margin, cfg.y_max + margin, n)
-        pts[i, :n, 2] = rng.uniform(cfg.z_min - 0.5, cfg.z_max + 0.5, n)
-        pts[i, :n, 3:] = rng.uniform(0, 1, (n, f - 3))
-    return pts, np.asarray(ns, np.int32)
+    return cloud_batch(rng, ns, cfg, f=f, margin=margin)
 
 
-def _dense_cell(rng, n_dense=2500, n_rest=1200):
-    """One cell holding more points than two 1024-point kernel chunks (a
-    segment that spans many chunks), plus scatter around it."""
-    pts = np.full((2, CFG.max_points, 4), 1e6, np.float32)
-    pts[0, :n_dense, 0] = 3.2 + rng.uniform(0, 0.2, n_dense)
-    pts[0, :n_dense, 1] = -1.4 + rng.uniform(0, 0.2, n_dense)
-    pts[0, :n_dense, 2] = rng.uniform(-1, 1, n_dense)
-    pts[0, :n_dense, 3] = np.arange(n_dense) / n_dense
-    rest, _ = _cloud(rng, [n_rest])
-    pts[0, n_dense:n_dense + n_rest] = rest[0, :n_rest]
-    pts[1, :n_rest] = rest[0, :n_rest]
-    return pts, np.asarray([n_dense + n_rest, n_rest], np.int32)
+def _dense_cell(rng):
+    return dense_cell_batch(rng, CFG)
 
 
 def _pair(cfg_name, **kw):

@@ -1,9 +1,10 @@
 """tpu_pillars_torch — the PyTorch/CUDA port of tpu_pillars.
 
-A PointPillars lidar detector served on an NVIDIA H100: raw point cloud ->
-``List[Box3D]`` through hand-written CUDA kernels (``csrc/``) for the emit,
-fused PFN, BEV scatter and NMS overlap steps. The JAX package ``tpu_pillars``
-stays the reference; this package imports nothing of it.
+A PointPillars lidar detector served and trained on an NVIDIA H100: raw
+point cloud -> ``List[Box3D]`` through hand-written CUDA kernels (``csrc/``)
+for the front end (sort, pillar emit or binning, PFN, BEV scatter or
+gather), the NMS overlap matrix and the target assigner. The JAX package
+``tpu_pillars`` stays the reference; this package imports nothing of it.
 
 Entry point: ``Detector`` (``Detector.from_checkpoint`` loads the JAX
 package's flax checkpoints). Entry points run on the card unless the caller

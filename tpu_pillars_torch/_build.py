@@ -35,9 +35,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # plain eager torch does (no fused multiply-add contraction), so each agrees
 # with its plain version
 EXTRA_FLAGS = {"fused_pfn": ["--fmad=false"], "nms_overlap": ["--fmad=false"],
-               "assign": ["--fmad=false"]}
+               "assign": ["--fmad=false"], "pfn": ["--fmad=false"]}
 
-KERNELS = ("emit", "fused_pfn", "bev_scatter", "nms_overlap", "assign")
+KERNELS = ("emit", "fused_pfn", "bev_scatter", "nms_overlap", "assign", "pfn",
+           "bitonic_sort", "binning", "bev_gather")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()

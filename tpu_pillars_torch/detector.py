@@ -1,13 +1,27 @@
 """Detector — the port's public inference API: raw point cloud ->
-``List[Box3D]``. Port of ``tpu_pillars/detector.py`` (serving path, fused
-front end, f32 wire).
+``List[Box3D]``. Port of ``tpu_pillars/detector.py`` (serving path, f32
+wire).
 
-Stage 1 (points -> wire tensors): stable sort by pillar id, cell-centring,
-K1 emit, K2 fused PFN, K3 BEV scatter, RPN, wire head. Stage 2 (wire ->
-detections): sigmoid, per-class threshold and top-k, decode, class-aware
-rotated NMS on the K4 overlap matrix. Everything runs on ``device``; the
-only host transfers are the padded cloud in and one packed (D, 10) array
-out.
+Stage 1 (points -> wire tensors) has two front ends, chosen as the JAX
+package chooses them (:func:`use_fused_frontend`):
+
+* fused (the default with ``use_pallas_pfn`` when the points per pillar
+  are a power of two): stable sort by pillar id, cell-centring, K1 emit,
+  K2 fused PFN, K3 BEV scatter;
+* classic (``fused_frontend=False``, or ``use_pallas_pfn=False``): stable
+  sort, K1 emit on the raw points, ``decorate``, the PillarFeatureNet on
+  the decorated (B*P, N, D) tensor — K6 (``use_pallas_pfn=True``) or the
+  plain module — and K3.
+
+Then the RPN and the wire head. Stage 2 (wire -> detections): sigmoid,
+per-class threshold and top-k, decode, class-aware rotated NMS on the K4
+overlap matrix. :func:`build_canvas_fn`, :func:`build_model_fn`,
+:func:`build_postprocess_fn` and :func:`build_forward_fn` are the stages as
+plain functions over a loaded ``PointPillars``; ``Detector`` runs stage 1
+through :func:`build_model_fn` and stage 2 through
+:func:`build_postprocess_fn`.
+Everything runs on ``device``; the only host transfers are the padded cloud
+in and one packed (D, 10) array out.
 
 The device defaults to ``"cuda"``: with no GPU the constructor raises
 unless the caller passes ``device="cpu"``, where the kernels' plain
@@ -26,8 +40,10 @@ from tpu_pillars_torch.geometry.boxes import Box3D
 from tpu_pillars_torch.geometry.transforms import Pose
 from tpu_pillars_torch.models.pointpillars import PointPillars
 from tpu_pillars_torch.ops.anchors import make_anchors
-from tpu_pillars_torch.ops.bev import scatter_to_bev
+from tpu_pillars_torch.ops.bev import scatter_to_bev, scatter_to_bev_auto
+from tpu_pillars_torch.ops.emit import pillarize_batch_emit
 from tpu_pillars_torch.ops.fused_pfn import pillarize_pfn_fused
+from tpu_pillars_torch.ops.pfn import pfn_fused
 from tpu_pillars_torch.ops.postprocess import Detections, postprocess_w
 from tpu_pillars_torch.utils.truncation import TruncationStats
 
@@ -49,14 +65,121 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def use_fused_frontend(config: PillarsConfig, use_pallas_pfn: bool,
+                       fused_frontend: Optional[bool] = None) -> bool:
+    """Resolve the fused-front-end switch as the JAX package does: None
+    means ``use_pallas_pfn`` (the JAX default on its accelerator; the port
+    always runs on its card), and the fused front end runs only when the
+    points per pillar are a power of two (the JAX fused kernel's
+    requirement, kept so that both packages take the same path)."""
+    n = config.max_points_per_pillar
+    if fused_frontend is None:
+        fused_frontend = use_pallas_pfn
+    return bool(fused_frontend) and (n & (n - 1)) == 0
+
+
+def build_canvas_fn(model: PointPillars, config: PillarsConfig,
+                    use_pallas_pfn: bool = True,
+                    fused_frontend: Optional[bool] = None):
+    """Front half of stage 1: f(points (B, M, F), num_points (B,)) -> BEV
+    canvas (B, H, W, C). Fused front end, or the classic one with K6
+    (``use_pallas_pfn``) or the plain PillarFeatureNet; see the module
+    docstring. The folded PFN weights are taken once, here."""
+    fused = use_fused_frontend(config, use_pallas_pfn, fused_frontend)
+    w, b = model.pfn.folded()
+
+    @torch.no_grad()
+    def canvas_fn(points, num_points):
+        if fused:
+            feats, pid_per, pmask = pillarize_pfn_fused(points, num_points,
+                                                        w, b, config)
+            return scatter_to_bev(feats, pid_per, pmask, config)
+        batch = pillarize_batch_emit(points, num_points, config)
+        B, P, N, D = batch.features.shape
+        if use_pallas_pfn:
+            flat = pfn_fused(batch.features.reshape(B * P, N, D),
+                             batch.mask.reshape(B * P, N), w, b)
+            feats = flat.reshape(B, P, -1)
+        else:
+            feats = model.pfn(batch.features, batch.mask)
+        return scatter_to_bev_auto(feats, batch.coords, batch.pillar_mask,
+                                   config)
+
+    return canvas_fn
+
+
+def build_model_fn(model: PointPillars, config: PillarsConfig,
+                   use_pallas_pfn: bool = True,
+                   fused_frontend: Optional[bool] = None):
+    """Stage 1: f(points (B, M, F), num_points (B,)) -> wire tensors (own
+    (B, A), box_p (B, 7, A), dir_p (B, 2, A)), f32. Its two halves stay
+    callable apart, as ``.canvas`` (points -> canvas) and ``.wire``
+    (canvas -> wire tensors), so that a caller can time them."""
+    canvas_fn = build_canvas_fn(model, config, use_pallas_pfn=use_pallas_pfn,
+                                fused_frontend=fused_frontend)
+
+    @torch.no_grad()
+    def wire_fn(canvas):
+        return model.wire_head(model.features_from_canvas(canvas))
+
+    def run_model(points, num_points):
+        return wire_fn(canvas_fn(points, num_points))
+
+    run_model.canvas = canvas_fn
+    run_model.wire = wire_fn
+    return run_model
+
+
+def build_postprocess_fn(config: PillarsConfig, device=None):
+    """Stage 2: f(own, box_p, dir_p) -> Detections, with the anchors made
+    once on ``device`` (None: the card, as :func:`resolve_device`)."""
+    device = resolve_device(device)
+    anchors, anchor_cls = make_anchors(config)
+    anchors_t = torch.from_numpy(np.array(anchors)).to(device)
+    anchor_cls_t = torch.from_numpy(
+        np.array(anchor_cls, dtype=np.int64)).to(device)
+
+    @torch.no_grad()
+    def run_post(own, box_p, dir_p) -> Detections:
+        return postprocess_w(own, box_p, dir_p, anchors_t, anchor_cls_t,
+                             config)
+
+    return run_post
+
+
+def build_forward_fn(model: PointPillars, config: PillarsConfig,
+                     use_pallas_pfn: bool = True,
+                     fused_frontend: Optional[bool] = None):
+    """f(points (B, M, F), num_points (B,)) -> Detections: stage 1 then
+    stage 2 on the model's device."""
+    stage1 = build_model_fn(model, config, use_pallas_pfn=use_pallas_pfn,
+                            fused_frontend=fused_frontend)
+    device = next(model.parameters()).device
+    stage2 = build_postprocess_fn(config, device)
+
+    def forward(points, num_points) -> Detections:
+        return stage2(*stage1(points, num_points))
+
+    return forward
+
+
 class Detector:
     """Host-facing wrapper: pads clouds to the static budget, runs the
     two stages, converts to Box3D (optionally into the global frame)."""
 
     def __init__(self, config: PillarsConfig, state_dict: dict,
                  device=None, host_crop: bool = True,
-                 wire_buckets: "Optional[tuple]" = None):
+                 wire_buckets: "Optional[tuple]" = None,
+                 fused_frontend: Optional[bool] = None,
+                 use_pallas_pfn: bool = True):
         """state_dict: ``weights.params_from_flax`` output.
+
+        fused_frontend: True for the decoration-free fused front end, False
+        for the classic one, None (default) for the fused one exactly when
+        ``use_pallas_pfn``; the fused one needs a power-of-two
+        ``max_points_per_pillar`` and the classic one runs otherwise
+        (:func:`use_fused_frontend`). use_pallas_pfn: on the classic front
+        end, the K6 kernel (default) or the plain PillarFeatureNet.
 
         host_crop: drop points outside the detection range on the host
         before upload (default on); a strict superset of the device validity
@@ -80,11 +203,12 @@ class Detector:
         model = PointPillars(config)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
-        self._pfn_w, self._pfn_b = self.model.pfn.folded()
-        anchors, anchor_cls = make_anchors(config)
-        self.anchors = torch.from_numpy(np.array(anchors)).to(self.device)
-        self.anchor_cls = torch.from_numpy(
-            np.array(anchor_cls, dtype=np.int64)).to(self.device)
+        self.fused_frontend = use_fused_frontend(config, use_pallas_pfn,
+                                                 fused_frontend)
+        self._stage1 = build_model_fn(self.model, config,
+                                      use_pallas_pfn=use_pallas_pfn,
+                                      fused_frontend=fused_frontend)
+        self._post = build_postprocess_fn(config, self.device)
 
     @classmethod
     def from_checkpoint(cls, config: PillarsConfig, path: str, **kw
@@ -104,23 +228,17 @@ class Detector:
 
     # --- stages (device tensors, static shapes) ---
 
-    @torch.no_grad()
     def canvas(self, points: torch.Tensor, num_points: torch.Tensor):
         """(B, M, F) f32 points, (B,) counts -> (B, H, W, C) canvas."""
-        feats, pid, pmask = pillarize_pfn_fused(
-            points, num_points, self._pfn_w, self._pfn_b, self.config)
-        return scatter_to_bev(feats, pid, pmask, self.config)
+        return self._stage1.canvas(points, num_points)
 
-    @torch.no_grad()
     def wire(self, canvas: torch.Tensor):
         """Canvas -> wire tensors (own (B, A), box_p (B, 7, A),
         dir_p (B, 2, A))."""
-        return self.model.wire_head(self.model.features_from_canvas(canvas))
+        return self._stage1.wire(canvas)
 
-    @torch.no_grad()
     def postprocess(self, own, box_p, dir_p) -> Detections:
-        return postprocess_w(own, box_p, dir_p, self.anchors,
-                             self.anchor_cls, self.config)
+        return self._post(own, box_p, dir_p)
 
     def _to_device(self, x, dtype):
         if not torch.is_tensor(x):
@@ -168,7 +286,7 @@ class Detector:
         """points_batch (B, M, F) already padded; num_points (B,)."""
         points = self._to_device(points_batch, torch.float32)
         counts = self._to_device(num_points, torch.int64)
-        return self.postprocess(*self.wire(self.canvas(points, counts)))
+        return self.postprocess(*self._stage1(points, counts))
 
     def predict_raw(self, points: np.ndarray) -> Detections:
         padded, n = self.pad_points(points)

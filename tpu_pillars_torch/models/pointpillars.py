@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from tpu_pillars_torch.config import PillarsConfig
-from tpu_pillars_torch.models.backbone import BatchNorm, RPNBackbone
+from tpu_pillars_torch.models.backbone import BN_EPS, BatchNorm, RPNBackbone
 from tpu_pillars_torch.ops.fused_pfn import fold_bn
 
 
@@ -55,13 +55,26 @@ def remat_flags(remat) -> tuple:
 
 
 class PFNWeights(nn.Module):
-    """The PillarFeatureNet's linear kernel (D, C) and BatchNorm; serving
-    only needs them folded (:meth:`folded`)."""
+    """The PillarFeatureNet's linear kernel (D, C) and BatchNorm. Serving
+    runs them folded (:meth:`folded`, for the K2 and K6 kernels) or as the
+    flax module computes them (:meth:`forward`)."""
 
     def __init__(self, in_dim: int, channels: int):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(in_dim, channels))
         self.bn = BatchNorm(channels)
+
+    def forward(self, features, mask):
+        """The flax ``PillarFeatureNet`` at inference (running statistics):
+        (..., P, N, D) decorated features, (..., P, N) mask -> (..., P, C).
+        Linear, BatchNorm, ReLU, masked max over N; empty pillars give 0."""
+        bn = self.bn
+        with full_fp32():
+            x = features @ self.kernel
+        y = (x - bn.running_mean) * torch.rsqrt(bn.running_var + BN_EPS)
+        y = torch.relu(y * bn.weight + bn.bias)
+        y = torch.where(mask[..., None], y, -1e9)
+        return torch.where(mask.any(dim=-1)[..., None], y.amax(dim=-2), 0.0)
 
     @torch.no_grad()
     def folded(self):

@@ -8,6 +8,15 @@ tensor :func:`scatter_to_bev` launches ``csrc/bev_scatter.cu``; on a CPU
 tensor it runs :func:`scatter_to_bev_plain`. Training uses
 :func:`scatter_to_bev_diff`: the same forward, and the JAX package's
 row-gather backward (``bev_pallas.py`` ``_ring_diff_bwd``).
+:func:`scatter_to_bev_auto` is the classic front end's entry, with (row,
+col) coords.
+
+K9, :func:`scatter_to_bev_emit` (port of ``bev_pallas.py``
+``scatter_to_bev_emit``), computes the same canvas as a gather: it needs
+the pillars of each sample in ascending id order (masked pillars last),
+which both pillarizers guarantee (canonical spec rule 3,
+``ops/voxelize.py``). On a CUDA tensor it launches ``csrc/bev_gather.cu``;
+on a CPU tensor it runs :func:`scatter_to_bev_emit_plain`.
 """
 
 from __future__ import annotations
@@ -104,3 +113,60 @@ def scatter_to_bev_plain(pillar_features, pid_per, pillar_mask,
     canvas = torch.zeros((B * H * W, C), dtype=torch.float32, device=dev)
     canvas[flat[pillar_mask]] = pillar_features[pillar_mask]
     return canvas.reshape(B, H, W, C)
+
+
+def scatter_to_bev_auto(pillar_features, coords, pillar_mask,
+                        config: PillarsConfig):
+    """The classic front end's scatter (``bev_pallas.py``
+    ``scatter_to_bev_auto``): (B, P, C) features, (B, P, 2) int32 (row,
+    col) coords, (B, P) validity -> (B, H, W, C) canvas through K3, with
+    pid = row * W + col. The reference's version also picks a backend; this
+    one has only K3 and is kept so that the name matches."""
+    pid = (coords[..., 0] * config.grid_w + coords[..., 1]).to(torch.int32)
+    return scatter_to_bev(pillar_features, pid, pillar_mask, config)
+
+
+def scatter_to_bev_emit(pillar_features, pid_per, pillar_mask,
+                        config: PillarsConfig):
+    """K9: (B, P, C) f32 features, (B, P) int32 ids, (B, P) bool validity
+    -> (B, H, W, C) f32 canvas, bit-identical to :func:`scatter_to_bev`.
+    PRECONDITION: ``where(pillar_mask, pid_per, H*W)`` ascends along P in
+    every sample (the pillarizers' order); other orders give a wrong
+    canvas."""
+    _check(pillar_features, pid_per, pillar_mask)
+    if pillar_features.device.type != "cuda":
+        return scatter_to_bev_emit_plain(pillar_features, pid_per,
+                                         pillar_mask, config)
+    H, W = config.grid_h, config.grid_w
+    B, P, C = pillar_features.shape
+    feats = pillar_features.contiguous()
+    pid = pid_per.contiguous()
+    mask = pillar_mask.contiguous()
+    canvas = torch.empty((B, H, W, C), dtype=torch.float32,
+                         device=feats.device)
+    fn = _build.function("bev_gather", "bev_gather", "ppppiiii")
+    err = fn(feats.data_ptr(), pid.data_ptr(), mask.data_ptr(),
+             canvas.data_ptr(), B, P, C, H * W, _build.stream_ptr(feats))
+    _build.check(err, "scatter_to_bev_emit")
+    _build.LAUNCHES["bev_gather"] += 1
+    return canvas
+
+
+def scatter_to_bev_emit_plain(pillar_features, pid_per, pillar_mask,
+                              config: PillarsConfig):
+    """Plain PyTorch version of :func:`scatter_to_bev_emit`, the same
+    gather: each canvas cell binary-searches the sample's ascending
+    effective ids and copies the matching row, or zero."""
+    _check(pillar_features, pid_per, pillar_mask)
+    H, W = config.grid_h, config.grid_w
+    B, P, C = pillar_features.shape
+    HW = H * W
+    dev = pillar_features.device
+    if P == 0:
+        return torch.zeros((B, H, W, C), dtype=torch.float32, device=dev)
+    eff = torch.where(pillar_mask, pid_per, HW).contiguous()
+    cells = torch.arange(HW, dtype=torch.int32, device=dev).expand(B, HW)
+    k = torch.searchsorted(eff, cells.contiguous()).clamp(max=P - 1)
+    hit = torch.gather(eff, 1, k) == cells
+    rows = torch.gather(pillar_features, 1, k[..., None].expand(B, HW, C))
+    return torch.where(hit[..., None], rows, 0.0).reshape(B, H, W, C)

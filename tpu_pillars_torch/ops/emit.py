@@ -17,6 +17,10 @@ row padding and no 128-lane padding.
 On a CUDA tensor :func:`emit_table` launches the hand-written kernel
 (``csrc/emit.cu``); on a CPU tensor it runs :func:`emit_table_plain`. The
 two agree bit for bit: the sums are taken in rank order on both sides.
+
+The classic front end (``emit_pallas.py`` ``emit_pillar_table``,
+``pillarize_batch_emit``) feeds K1 the raw sorted points and builds the
+decorated ``PillarBatch`` from its table: :func:`pillarize_batch_emit`.
 """
 
 from __future__ import annotations
@@ -24,6 +28,10 @@ from __future__ import annotations
 import torch
 
 from tpu_pillars_torch import _build
+from tpu_pillars_torch.config import PillarsConfig
+from tpu_pillars_torch.ops.voxelize import (
+    PillarBatch, decorate, sort_points_by_pillar,
+)
 
 META_ROWS = 8
 
@@ -110,3 +118,39 @@ def emit_table_plain(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
         sums = sums + torch.where(j < cnt, rows[:, j, :3], 0.0)
     meta[:, 2:5] = sums.reshape(B, p_budget, 3).transpose(1, 2)
     return table, meta.reshape(B * META_ROWS, p_budget)
+
+
+def emit_pillar_table(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
+                      n_pts: int, p_budget: int, hw: int):
+    """:func:`emit_table` reshaped: table (B, P, n_pts, F) f32, meta
+    (B, 8, P) f32 (row 0 kept-point count, row 1 pillar id, rows 2-4 kept
+    x/y/z sums). Kept as its own function only so that the name matches the
+    reference's."""
+    B, _, F = pts_sorted.shape
+    table, meta = emit_table(gid_sorted, pts_sorted, n_pts, p_budget, hw)
+    return (table.reshape(B, p_budget, n_pts, F),
+            meta.reshape(B, META_ROWS, p_budget))
+
+
+def pillarize_batch_emit(points: torch.Tensor, num_points: torch.Tensor,
+                         config: PillarsConfig) -> PillarBatch:
+    """Drop-in for ``ops.voxelize.pillarize_batch`` built on K1: the stable
+    sort, K1 on the raw sorted points, then the masks, coords and
+    ``decorate`` from the table. Bit-identical ``PillarBatch`` fields; the
+    pillar ids come out of K1's f32 meta, exact because H*W < 2^24, and
+    masked pillars get zero coords."""
+    P = config.max_pillars
+    N = config.max_points_per_pillar
+    W = config.grid_w
+    gid_s, pts_s = sort_points_by_pillar(points, num_points, config)
+    raw, meta = emit_pillar_table(gid_s, pts_s, N, P,
+                                  config.grid_h * config.grid_w)
+    cnt = meta[:, 0]
+    pid_per = meta[:, 1].to(torch.int32)
+    pillar_mask = cnt > 0.0
+    mask = (torch.arange(N, device=points.device)[None, None, :]
+            < cnt.to(torch.int32)[:, :, None])
+    coords = (torch.stack([pid_per // W, pid_per % W], dim=-1)
+              * pillar_mask[..., None]).to(torch.int32)
+    features = decorate(raw, mask, coords, config)
+    return PillarBatch(features, mask, coords, pillar_mask)
