@@ -7,14 +7,23 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda`` or ``CUDA_HOME``), and
 imports nothing of JAX. Phases; any failure exits non-zero before the last
 line:
 
-  1. Print the card (``nvidia-smi`` name and power limit) and build the nine
+  1. Print the card (``nvidia-smi`` name and power limit) and build the 11
      CUDA kernels of ``tpu_pillars_torch/csrc`` from source.
   2. On a batch of 8 lidar-like sweeps of ~100k points at the full
      ``PillarsConfig()``, run each kernel and its plain PyTorch version on
      the card on the same inputs: K1 emit and K3 scatter must be bit-equal
      (K3's backward too), K2 fused PFN within atol 1e-5 / rtol 1e-5, K4 NMS
      overlap equal except pairs whose IoU lies within 1e-4 of the
-     threshold. K5 (the target assigner) on the training batch's GT, the
+     threshold. K11 stream front end within atol 1e-5 / rtol 1e-5 of its
+     plain version and atol 1e-4 / rtol 1e-5 of K3's fused canvas, the
+     occupancy equal cell for cell. K7 tiled IoU on the batch's 8 x 1,024
+     top-k candidates within atol 1e-5 of its plain version, and within
+     1e-3 of the float64 polygon clip on the candidate pairs that pass the
+     gate and lie within 8 m of their tile's mean (elsewhere the candidates
+     are held only to the plain version; the tiling's own error against the
+     dense IoU is printed); within 1e-3 of the dense IoU on boxes within 8 m
+     of the origin.
+     K5 (the target assigner) on the training batch's GT, the
      golden GT and a crowded 16-per-class GT set: best IoU within 2e-5, the
      best GT equal wherever the IoU is positive and not tied within 2e-5.
      On the classic front end's inputs of the same batch: K6 PFN within
@@ -29,12 +38,24 @@ line:
      ``scripts/make_torch_golden.py`` from the JAX package) must reproduce
      the JAX detections; ``predict_packed_batch`` at batch 8 is timed by
      stage. K1-K4 must have launched during these calls.
+     3d. The stream front end and the tiled IoU as drop-ins: the stream
+     canvas of the batch against the fused one, the stream canvas then
+     ``wire`` and ``postprocess`` on the 8 golden scenes against the JAX
+     detections, K7 on the candidates; K11 and K7 must have launched. K11's
+     time is printed beside the fused front end's.
      3b. The classic front end (``fused_frontend=False``): the same golden
      check and stage split; K1, K6, K3 and K4 must have launched, K2 not.
      3c. The drop-ins on the batch: the bitonic sort equals the stable
      sort, the binned pillarizer equals the classic ``PillarBatch``, and K6
      on it then K9 equals the classic canvas bit for bit; K10, K8 and K9
      must have launched.
+  5. Evaluation (run before training): the held-out mAP of the 8 golden
+     scenes on the card (``evaluate_scenes``) within 1e-3 of the port's
+     scorer on the golden JAX detections; ``predict_tta`` (4 views, WBF)
+     against the golden JAX TTA detections, whose mAP the second scorer
+     (``lyft_map_alt``) must reproduce within 1e-9; ``evaluate_dataset`` on a
+     Lyft-format fixture at the full config (8 samples, batch 8), its boxes
+     equal to ``Detector.predict``'s within 1e-5.
   4. The training path: on the golden batch of
      ``tests/data/torch_train_golden_synth4k.npz`` (written by
      ``scripts/make_torch_train_golden.py`` from the JAX package) the port's
@@ -48,7 +69,7 @@ line:
 
 The line before the last is a JSON object ``{"kernels": [...]}``, each
 kernel with its launches on the path that runs it (serving: K1-K4, classic
-serving: K6, drop-ins: K8-K10, training: K5); the last line is
+serving: K6, drop-ins: K8-K10, K11 and K7, training: K5); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -68,6 +89,7 @@ GOLDEN = os.path.join(ROOT, "tests", "data", "torch_golden_synth4k.npz")
 BATCH = 8
 POINTS_PER_SWEEP = 100_000
 SEED = 0
+HELDOUT_SEED = 7100      # bench.py's held-out scenes, the golden file's
 NMS_BOUNDARY_TOL = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 CUDA-core FLOP/s
@@ -81,6 +103,13 @@ K4_OPS_HOT = 1500
 # K5 (csrc/assign.cu) runs the same gate and the same pair arithmetic
 K5_OPS_GATE = 8
 K5_OPS_HOT = 1500
+# K7 operations per pair, counted from csrc/iou_tiled.cu as K4's: the gate
+# (2 subtracts, 3 products, 2 adds, a half, a compare), and for a pair that
+# passes it two half-edge integrals (4 half-planes of 6 operations, then 4
+# edges of 2 + 4 x 21 + 13 operations) and the area clamps and IoU (~10)
+K7_OPS_GATE = 9
+K7_OPS_HOT = 2 * (4 * 6 + 4 * (2 + 4 * 21 + 13)) + 10
+IOU_BLOCK = 128          # rotated_iou_bev_tiled's default tile
 K5_IOU_TOL = 2e-5
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
                             "torch_train_golden_synth4k.npz")
@@ -160,7 +189,9 @@ def main() -> None:
     from tpu_pillars_torch import _build
     from tpu_pillars_torch.config import PillarsConfig
     from tpu_pillars_torch.detector import Detector
-    from tpu_pillars_torch.ops import bev, emit, fused_pfn, nms_overlap
+    from tpu_pillars_torch.ops import (
+        bev, emit, fused_pfn, nms_overlap, postprocess,
+    )
     from tpu_pillars_torch.ops.voxelize import sort_points_by_pillar
     from tpu_pillars_torch.train.loop import synthetic_batches
     from tpu_pillars_torch.train.state import TrainConfig
@@ -188,20 +219,32 @@ def main() -> None:
     points = torch.from_numpy(np.stack([p for p, _ in padded])).to(dev)
     counts = torch.from_numpy(np.asarray([n for _, n in padded])).to(dev)
 
-    # K4's inputs are the class-blocked candidates of the main path: record
-    # them from one batch call
-    seen = []
+    # K4's inputs are the class-blocked candidates of the main path, K7's
+    # the same top-k candidates before the class shift: record both from
+    # one batch call
+    seen, cands = [], []
     launch_overlap = nms_overlap.overlap_matrix
+    nms_entry = postprocess.rotated_nms_overlap
+    shift = 4.0 * ((cfg.x_max - cfg.x_min) + (cfg.y_max - cfg.y_min))
 
     def recording(boxes, thr):
         seen.append((boxes.clone(), thr))
         return launch_overlap(boxes, thr)
 
+    def recording_nms(shifted, valid, thr, class_ids=None, class_gap=0.0):
+        boxes = shifted.clone()
+        boxes[..., 0] = shifted[..., 0] - class_ids.to(boxes.dtype) * shift
+        cands.append(boxes)
+        return nms_entry(shifted, valid, thr, class_ids=class_ids,
+                         class_gap=class_gap)
+
     nms_overlap.overlap_matrix = recording
+    postprocess.rotated_nms_overlap = recording_nms
     try:
         det.predict_packed_batch(points, counts)
     finally:
         nms_overlap.overlap_matrix = launch_overlap
+        postprocess.rotated_nms_overlap = nms_entry
     torch.cuda.synchronize()
 
     # ---- phase 2: every kernel against its plain version, on the card
@@ -300,8 +343,8 @@ def main() -> None:
     flips = (over != over_p).nonzero()
     if len(flips):
         b, j, i = flips.unbind(1)
-        iou = overlap_iou64(boxes[b, j].cpu().numpy(),
-                            boxes[b, i].cpu().numpy())
+        iou = iou64_pairs(boxes[b, j].cpu().numpy(),
+                          boxes[b, i].cpu().numpy())
         worst = float(np.max(np.abs(iou - thr)))
         if worst >= NMS_BOUNDARY_TOL:
             fail(f"K4 overlap: {len(flips)} pairs differ from the plain "
@@ -325,6 +368,13 @@ def main() -> None:
                     pairs * K4_OPS_GATE + hot * K4_OPS_HOT))
     del canvas_p, over_p, feats_p, table_p, meta_p
     torch.cuda.empty_cache()
+    # K11 on the same sorted, centred batch, against its plain version and
+    # the fused path's canvas (K1, K2, K3 above)
+    rows["stream_pfn"] = stream_row(cfg, gid, pts, w_eff, w_dec, canvas,
+                                    kept_pts)
+    del canvas, table, meta, feats
+    torch.cuda.empty_cache()
+    rows["iou_tiled"] = iou_tiled_row(cands[0])
     classic_rows(cfg, points, counts, w_pfn, b_pfn, rows)
 
     # ---- phase 3: the serving path
@@ -346,7 +396,11 @@ def main() -> None:
         fail("the batch call detected nothing")
 
     stage_split(det, points, counts, clouds)
-    del det, out
+
+    # ---- phase 3d: the stream front end and the tiled IoU as drop-ins
+    launches.update(stream_iou_drop_ins(cfg, det, points, counts, golden,
+                                        cands[0]))
+    del det, out, cands
     torch.cuda.empty_cache()
 
     # ---- phase 3b: the classic serving path
@@ -375,6 +429,9 @@ def main() -> None:
     del det_c, points, counts
     torch.cuda.empty_cache()
 
+    # ---- phase 5 (run before training): evaluation on the card
+    evaluation(cfg, golden)
+
     # ---- phase 4: the training path
     train_golden(cfg, dev)
     train_launches = {}
@@ -393,7 +450,9 @@ def main() -> None:
                 "pfn": "tpu_pillars/ops/pfn_pallas.py:35",
                 "bitonic_sort": "tpu_pillars/ops/sort_pallas.py:80",
                 "binning": "tpu_pillars/ops/binning_pallas.py:69",
-                "bev_gather": "tpu_pillars/ops/bev_pallas.py:62"}
+                "bev_gather": "tpu_pillars/ops/bev_pallas.py:62",
+                "stream_pfn": "tpu_pillars/ops/stream_pfn.py:128",
+                "iou_tiled": "tpu_pillars/ops/iou_pallas.py:88"}
     kernels = []
     for name, r in rows.items():
         b_ms, b_by = r["bound"]
@@ -415,6 +474,139 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
+
+
+def stream_row(cfg, gid, pts, w_eff, w_dec, fused_canvas, kept_pts):
+    """K11 against its plain version (atol 1e-5 / rtol 1e-5, K2's gate) and
+    the fused path's canvas (atol 1e-4 / rtol 1e-5), occupancy equal cell
+    for cell in both; its times and bound."""
+    import torch
+
+    from tpu_pillars_torch.ops import stream_pfn
+
+    args = (gid, pts, w_eff, w_dec, cfg)
+    got = stream_pfn.stream_canvas_from_sorted(*args)
+    plain = stream_pfn.stream_canvas_from_sorted_plain(*args)
+    torch.cuda.synchronize()
+    occ = got.ne(0).any(-1)
+    for name, want, atol in (("its plain version", plain, 1e-5),
+                             ("the fused canvas", fused_canvas, 1e-4)):
+        if not torch.equal(occ, want.ne(0).any(-1)):
+            fail(f"K11 occupancy differs from {name}")
+        if not torch.allclose(got, want, atol=atol, rtol=1e-5):
+            fail(f"K11 differs from {name}: max |d| "
+                 f"{(got - want).abs().max().item():.3e}")
+    err = (got - plain).abs().max().item()
+    print(f"K11: {int(occ.sum())} occupied cells, max |d| {err:.3e} vs its "
+          f"plain version, {(got - fused_canvas).abs().max().item():.3e} "
+          f"vs the fused canvas")
+    B, M = gid.shape
+    F, C = w_eff.shape
+    P = cfg.max_pillars
+    return dict(
+        err=err,
+        ms=cuda_ms(lambda: stream_pfn.stream_canvas_from_sorted(*args), 20),
+        plain_ms=cuda_ms(
+            lambda: stream_pfn.stream_canvas_from_sorted_plain(*args), 3),
+        library_ms=None,
+        bound=bound(B * M * 4 + kept_pts * F * 4 + got.numel() * 4,
+                    kept_pts * C * 2 * F + B * P * C * 14))
+
+
+def iou_tiled_row(cands):
+    """K7 on the main path's (B, K, 7) top-k candidates, as B (K x K)
+    matrices: within atol 1e-5 of its plain tiled version; within 1e-3 of
+    the float64 polygon clip on the pairs that pass the gate and whose boxes
+    both lie within 8 m of their tile's mean, where the recentred
+    coordinates are as small as in the JAX package's own test of its kernel
+    (farther out the tiling carries its own f32 error, printed against the
+    dense IoU and refereed, and the candidates are held only to the plain
+    version); within 1e-3 of the dense IoU on boxes within 8 m of the
+    origin. Its times and bound."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch.ops import iou, iou_tiled
+
+    B, K, _ = cands.shape
+    got = iou_tiled.rotated_iou_bev_tiled(cands, cands)
+    plain = iou_tiled.rotated_iou_bev_tiled_plain(cands, cands)
+    dense = torch.stack([iou.rotated_iou_bev(c, c) for c in cands])
+    torch.cuda.synchronize()
+    err = (got - plain).abs().max().item()
+    if err > 1e-5:
+        fail(f"K7 differs from its plain version: max |d| {err:.3e}")
+    d_got = (got - dense).abs()
+    far = (d_got > 1e-3).nonzero()
+    print(f"K7 on the candidates: max |d| {err:.3e} vs its plain version; "
+          f"vs the dense IoU max |d| {d_got.max().item():.3e}, {len(far)} "
+          f"of {B * K * K} pairs beyond 1e-3")
+    if len(far):
+        b, i, j = far[:256].unbind(1)
+        ref = iou64_pairs(cands[b, i].cpu().numpy(), cands[b, j].cpu().numpy())
+        off_dense = np.abs(dense[b, i, j].cpu().numpy() - ref).max()
+        off_k7 = np.abs(got[b, i, j].cpu().numpy() - ref).max()
+        print(f"K7: on those pairs the float64 clip is {off_dense:.3e} from "
+              f"the dense IoU and {off_k7:.3e} from K7")
+
+    dx = cands[:, :, None, 0] - cands[:, None, :, 0]
+    dy = cands[:, :, None, 1] - cands[:, None, :, 1]
+    r = torch.sqrt(cands[..., 3] ** 2 + cands[..., 4] ** 2)
+    rr = 0.5 * (r[:, :, None] + r[:, None, :])
+    gate = dx * dx + dy * dy <= rr * rr
+    hot = int(gate.sum())
+    # each tile's mean as the kernel takes it: half the row tile's mean plus
+    # half the column tile's, over whole tiles padded with boxes of ones
+    tile = torch.arange(K, device=cands.device) // IOU_BLOCK
+    d2_i = torch.zeros(B, K, K, device=cands.device)
+    d2_j = torch.zeros(B, K, K, device=cands.device)
+    for c in (0, 1):
+        v = torch.cat([cands[..., c], cands.new_ones(B, -K % IOU_BLOCK)], 1)
+        m = v.view(B, -1, IOU_BLOCK).mean(-1)[:, tile]
+        mean = 0.5 * (m[:, :, None] + m[:, None, :])
+        d2_i += (cands[:, :, None, c] - mean) ** 2
+        d2_j += (cands[:, None, :, c] - mean) ** 2
+    pick = (gate & (torch.maximum(d2_i, d2_j) <= 8.0 ** 2)
+            & ~torch.eye(K, dtype=torch.bool, device=cands.device)).nonzero()
+    if len(pick) == 0:
+        fail("K7: no gated candidate pair lies within 8 m of its tile's mean")
+    n_near = len(pick)
+    pick = pick[torch.linspace(0, n_near - 1, min(n_near, 2048),
+                               device=pick.device).long()]
+    b, i, j = pick.unbind(1)
+    ref = iou64_pairs(cands[b, i].cpu().numpy(), cands[b, j].cpu().numpy())
+    err_ref = float(np.abs(got[b, i, j].cpu().numpy() - ref).max())
+    if err_ref > 1e-3:
+        fail(f"K7 near the tile mean: max |d| {err_ref:.3e} from the float64 "
+             f"clip (limit 1e-3)")
+    print(f"K7 on {len(pick)} of the {n_near} gated candidate pairs near "
+          f"their tile's mean: max |d| {err_ref:.3e} from the float64 clip "
+          f"({int((ref > 0).sum())} of them overlap)")
+    rng = np.random.default_rng(SEED + 2)
+    near = np.zeros((B, K, 7), np.float32)
+    near[..., 0:2] = rng.uniform(-8.0, 8.0, (B, K, 2))
+    near[..., 2:6] = rng.uniform([-1.0, 0.5, 0.5, 0.5], [1.0, 3.0, 6.0, 3.0],
+                                 (B, K, 4))
+    near[..., 6] = rng.uniform(-np.pi, np.pi, (B, K))
+    near = torch.from_numpy(near).to(cands.device)
+    got_n = iou_tiled.rotated_iou_bev_tiled(near, near)
+    dense_n = torch.stack([iou.rotated_iou_bev(c, c) for c in near])
+    err_n = (got_n - dense_n).abs().max().item()
+    if err_n > 1e-3:
+        fail(f"K7 on boxes within 8 m: max |d| {err_n:.3e} from the dense "
+             f"IoU (limit 1e-3)")
+    print(f"K7 on {B} x {K} boxes within 8 m of the origin: max |d| "
+          f"{err_n:.3e} from the dense IoU")
+    pairs = B * K * K
+    print(f"K7: {hot} of {pairs} pairs pass the gate")
+    return dict(
+        err=err,
+        ms=cuda_ms(lambda: iou_tiled.rotated_iou_bev_tiled(cands, cands), 20),
+        plain_ms=cuda_ms(
+            lambda: iou_tiled.rotated_iou_bev_tiled_plain(cands, cands), 3),
+        library_ms=None,
+        bound=bound(2 * cands.numel() * 4 + pairs * 4,
+                    pairs * K7_OPS_GATE + hot * K7_OPS_HOT))
 
 
 def crowded_gt(cfg, batch):
@@ -847,49 +1039,168 @@ def drop_ins(cfg, det_c, points, counts, w_pfn, b_pfn):
     return {k: launches[k] for k in ("bitonic_sort", "binning", "bev_gather")}
 
 
-def overlap_iou64(a, b):
-    """Float64 rotated BEV IoU of box pairs a[n], b[n] (polygon clipping),
-    the referee for pairs where kernel and plain version disagree."""
+def stream_iou_drop_ins(cfg, det, points, counts, golden, cands):
+    """K11 and K7 as drop-ins at full width: the stream front end through
+    its user entry on the serving batch (against the fused canvas) and on
+    every golden scene (then the detector's ``wire`` and ``postprocess``,
+    against the JAX detections), and the tiled IoU on the batch's top-k
+    candidates. Prints K11's time beside the fused front end's. Returns
+    their launches."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.detector import pack_detections, packed_to_boxes
+    from tpu_pillars_torch.ops import iou_tiled, stream_pfn
+
+    w, b = det.model.pfn.folded()
+    want = det.canvas(points, counts)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    canvas = stream_pfn.points_to_canvas_stream(points, counts, w, b, cfg)
+    offs = golden["offsets"]
+    n_boxes, worst = 0, np.zeros(3)
+    for s in range(len(offs) - 1):
+        padded, n = det.pad_points(golden["points"][offs[s]:offs[s + 1]])
+        c = stream_pfn.points_to_canvas_stream(
+            torch.from_numpy(padded[None]).to(det.device),
+            torch.tensor([int(n)], device=det.device), w, b, cfg)
+        packed = pack_detections(det.postprocess(*det.wire(c)))[0]
+        got = packed_to_boxes(packed.cpu().numpy(), cfg)
+        worst = np.maximum(worst, check_boxes(
+            got, packed_to_boxes(golden["packed"][s], cfg), s))
+        n_boxes += len(got)
+    iou_tiled.rotated_iou_bev_tiled(cands, cands)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"launches on the stream/IoU drop-in path: {launches}")
+    for name in ("stream_pfn", "iou_tiled"):
+        if launches[name] == 0:
+            fail(f"kernel {name} did not launch on the drop-in path")
+    if not torch.equal(canvas.ne(0).any(-1), want.ne(0).any(-1)):
+        fail("the stream canvas's occupancy differs from the fused canvas")
+    if not torch.allclose(canvas, want, atol=1e-4, rtol=1e-5):
+        fail(f"the stream canvas differs from the fused canvas: max |d| "
+             f"{(canvas - want).abs().max().item():.3e}")
+    print(f"golden (stream front end): {len(offs) - 1} scenes, {n_boxes} "
+          f"boxes match the JAX detections; worst |d score| {worst[0]:.3e}, "
+          f"|d centre| {worst[1]:.3e} m, |d yaw| {worst[2]:.3e} rad")
+    fused_ms = cuda_ms(lambda: det.canvas(points, counts), 10)
+    stream_ms = cuda_ms(lambda: stream_pfn.points_to_canvas_stream(
+        points, counts, w, b, cfg), 10)
+    print(f"front end, batch {points.shape[0]}, points to canvas (CUDA "
+          f"events, median): fused (sort, centre, K1, K2, K3) "
+          f"{fused_ms:.4f} ms, stream (sort, centre, sidecar, K11) "
+          f"{stream_ms:.4f} ms")
+    return {k: launches[k] for k in ("stream_pfn", "iou_tiled")}
+
+
+def evaluation(cfg, golden):
+    """The evaluation path on the card, fused front end, trained
+    checkpoint: ``evaluate_scenes`` on the 8 held-out scenes (GT from the
+    port's ``make_scene``, seed 7100, whose clouds must equal the golden
+    file's) against the port's scorer on the golden JAX detections (within
+    1e-3); ``predict_tta`` (4 flip views, WBF) against the golden JAX TTA
+    detections (:func:`check_boxes`); ``evaluate_dataset`` on a Lyft-format
+    fixture at the full config (8 samples, batch 8), whose boxes must equal
+    ``Detector.predict``'s per sample within 1e-5. The second scorer,
+    ``lyft_map_alt`` (another algorithmic shape of the same definition),
+    must give the TTA detections the first scorer's mAP within 1e-9."""
+    import tempfile
+
     import numpy as np
 
-    def corners(x):
-        c, s = math.cos(x[6]), math.sin(x[6])
-        lx = np.array([x[4], -x[4], -x[4], x[4]]) / 2
-        ly = np.array([x[3], x[3], -x[3], -x[3]]) / 2
-        return np.stack([x[0] + c * lx - s * ly, x[1] + s * lx + c * ly], 1)
+    from tpu_pillars_torch.data.fixture import build_fixture
+    from tpu_pillars_torch.data.lyft import LyftDataset
+    from tpu_pillars_torch.data.synthetic import make_scene
+    from tpu_pillars_torch.detector import Detector, packed_to_boxes
+    from tpu_pillars_torch.evaluation.map_eval import EvalBox, lyft_map
+    from tpu_pillars_torch.evaluation.map_eval_alt import lyft_map_alt
+    from tpu_pillars_torch.evaluation.pipeline import (
+        evaluate_dataset, evaluate_scenes,
+    )
+    from tpu_pillars_torch.evaluation.tta import MODES, predict_tta
 
-    def clip(poly, p, q):
-        # keep the part of poly left of the directed edge p -> q
-        out = []
-        side = lambda v: ((q[0] - p[0]) * (v[1] - p[1])  # noqa: E731
-                          - (q[1] - p[1]) * (v[0] - p[0]))
-        for k in range(len(poly)):
-            u, v = poly[k], poly[(k + 1) % len(poly)]
-            su, sv = side(u), side(v)
-            if su >= 0:
-                out.append(u)
-            if su * sv < 0:
-                out.append(u + (v - u) * (su / (su - sv)))
-        return out
+    det = Detector.from_checkpoint(cfg, CKPT)
+    rng = np.random.default_rng(HELDOUT_SEED)
+    offs = golden["offsets"]
+    scenes = [make_scene(rng, cfg) for _ in range(len(offs) - 1)]
+    gt, pred = [], []
+    for s, sc in enumerate(scenes):
+        if not np.array_equal(sc.points,
+                              golden["points"][offs[s]:offs[s + 1]]):
+            fail(f"held-out scene {s} differs from the golden cloud")
+        tok = f"scene{s}"
+        gt += [EvalBox(tok, cfg.class_names[int(c)],
+                       np.asarray(b, np.float64), -1.0)
+               for b, c in zip(sc.gt_boxes, sc.gt_classes)]
+        pred += [EvalBox.from_box3d(b) for b in packed_to_boxes(
+            golden["packed"][s], cfg, token=tok)]
+    m_card, _ = evaluate_scenes(det, scenes)
+    m_jax, _ = lyft_map(gt, pred, cfg.class_names)
+    print(f"held-out mAP, {len(scenes)} scenes (seed {HELDOUT_SEED}): on "
+          f"the card {m_card:.6f}; the JAX golden "
+          f"detections scored by the port {m_jax:.6f}; JAX evaluate_scenes "
+          f"(CPU, golden file) {float(golden['map_heldout']):.6f}; TPU "
+          f"record 0.5154 (BENCH_r05.json: history, not the port's number)")
+    if abs(m_card - m_jax) > 1e-3:
+        fail(f"held-out mAP {m_card:.6f} on the card vs {m_jax:.6f} from "
+             f"the JAX detections (limit 1e-3)")
 
-    def area(poly):
-        if len(poly) < 3:
-            return 0.0
-        x = np.array([v[0] for v in poly])
-        y = np.array([v[1] for v in poly])
-        return 0.5 * abs(np.dot(x, np.roll(y, -1)) - np.dot(y, np.roll(x, -1)))
+    pred_tta, n_boxes, worst = [], 0, np.zeros(3)
+    for s, sc in enumerate(scenes):
+        got = predict_tta(det, sc.points, modes=MODES, merge="wbf",
+                          token=f"scene{s}")
+        want = packed_to_boxes(golden["tta_packed"][s], cfg)
+        worst = np.maximum(worst, check_boxes(got, want, f"TTA {s}"))
+        n_boxes += len(got)
+        pred_tta += [EvalBox.from_box3d(b) for b in got]
+    m_tta, _ = lyft_map(gt, pred_tta, cfg.class_names)
+    m_alt, _ = lyft_map_alt(gt, pred_tta, cfg.class_names)
+    if abs(m_tta - m_alt) > 1e-9:
+        fail(f"the two scorers differ on the TTA detections: {m_tta:.12f} "
+             f"vs {m_alt:.12f}")
+    print(f"TTA (4 views, WBF): {n_boxes} boxes match the JAX TTA "
+          f"detections; worst |d score| {worst[0]:.3e}, |d centre| "
+          f"{worst[1]:.3e} m, |d yaw| {worst[2]:.3e} rad; held-out mAP "
+          f"{m_tta:.6f} (the second scorer: {m_alt:.6f})")
 
-    out = np.zeros(len(a))
-    for n in range(len(a)):
-        ca, cb = corners(a[n].astype(np.float64)), corners(
-            b[n].astype(np.float64))
-        poly = list(ca)
-        for k in range(4):
-            poly = clip(poly, cb[k], cb[(k + 1) % 4])
-        inter = area(poly)
-        union = area(list(ca)) + area(list(cb)) - inter
-        out[n] = inter / max(union, 1e-12)
-    return out
+    with tempfile.TemporaryDirectory() as root:
+        ds = LyftDataset(build_fixture(root, cfg, num_scenes=2,
+                                       samples_per_scene=4,
+                                       sweeps_per_sample=1, seed=SEED))
+        m_ds, _, preds = evaluate_dataset(det, ds, batch_size=BATCH)
+        tokens = ds.sample_tokens()
+        n_boxes = 0
+        for tok in tokens:
+            sd = ds.lidar_sample_data(tok)
+            single = det.predict(
+                ds.load_point_cloud(sd)[:, :cfg.num_raw_features],
+                token=tok, lidar_to_global=ds.lidar_to_global(sd))
+            batched = preds[tok]
+            if len(single) != len(batched) or any(
+                    a.label != b.label
+                    or not np.allclose(a.to_array(), b.to_array(), rtol=0,
+                                       atol=1e-5)
+                    for a, b in zip(single, batched)):
+                fail(f"evaluate_dataset's boxes for {tok} differ from "
+                     f"Detector.predict's")
+            n_boxes += len(batched)
+    print(f"evaluate_dataset: {len(tokens)} fixture samples at batch "
+          f"{BATCH}, {n_boxes} boxes equal to Detector.predict's per sample "
+          f"(1e-5); mAP {m_ds:.6f}")
+
+
+def iou64_pairs(a, b):
+    """Float64 rotated BEV IoU of box pairs a[n], b[n] by the port's polygon
+    clip (``reference_cpu.postprocess``): the referee where two f32 IoUs
+    disagree."""
+    import numpy as np
+
+    from tpu_pillars_torch.reference_cpu.postprocess import rotated_iou_bev_np
+
+    return np.array([rotated_iou_bev_np(x[None], y[None])[0, 0]
+                     for x, y in zip(a, b)])
 
 
 def check_boxes(got, want, scene):

@@ -9,7 +9,11 @@ K1 emit and K3 scatter are held bit for bit, K3's backward too; K2 fused
 PFN and K6 PFN to atol 1e-5, rtol 1e-5 (both sides round the same f32
 operations in the same order; the kernels are built without fused
 multiply-adds); K10 bitonic sort, K8 binning and K9 block gather bit for
-bit (K10 also against the stable torch.sort, K9 against K3); K4
+bit (K10 also against the stable torch.sort, K9 against K3); K11 stream
+front end to atol 1e-5 / rtol 1e-5 with the occupancy equal, and to atol
+1e-4 of the fused path's canvas (K1, K2, K3); K7 tiled IoU to atol 1e-5,
+and to 1e-3 of the dense IoU on boxes within 8 m of the origin (the JAX
+package's own test of its kernel); K4
 overlap equal except pairs whose IoU lies within 1e-4 of the threshold; K5
 best IoU within 2e-5 and the best GT equal wherever the IoU is positive and
 not tied within 2e-5; the detector's packed output on the card against the
@@ -27,7 +31,8 @@ from tpu_pillars_torch import config as tconfig
 from tpu_pillars_torch.detector import Detector
 from tpu_pillars_torch.models.pointpillars import PointPillars
 from tpu_pillars_torch.ops import (
-    assign, bev, binning, emit, fused_pfn, iou, nms_overlap, pfn, sort,
+    assign, bev, binning, emit, fused_pfn, iou, iou_tiled, nms_overlap, pfn,
+    sort, stream_pfn,
 )
 from tpu_pillars_torch.ops.target_assigner import group_gt_by_class
 from tpu_pillars_torch.ops.voxelize import (
@@ -457,3 +462,65 @@ def test_train_steps_on_card_match_cpu(dev):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert int(a.num_pos) == int(b.num_pos) > 0
         np.testing.assert_allclose(float(a.total), float(b.total), rtol=1e-3)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_stream_kernel_matches_plain_and_fused(dev, case):
+    cfg, gid, pts = _sorted_centered(case, dev)
+    rng = np.random.default_rng(1)
+    D, C = cfg.num_decorated_features, cfg.pfn_channels
+    w = torch.from_numpy((rng.normal(size=(D, C)) * 0.3).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(C,)).astype(np.float32))
+    w_eff, w_dec = fused_pfn.fold_decoration(w.to(dev), b.to(dev), cfg)
+    before = _build.LAUNCHES["stream_pfn"]
+    got = stream_pfn.stream_canvas_from_sorted(gid, pts, w_eff, w_dec, cfg)
+    assert _build.LAUNCHES["stream_pfn"] == before + 1
+    want = stream_pfn.stream_canvas_from_sorted_plain(gid, pts, w_eff,
+                                                      w_dec, cfg)
+    table, meta = emit.emit_table(gid, pts, cfg.max_points_per_pillar,
+                                  cfg.max_pillars, cfg.grid_h * cfg.grid_w)
+    feats, pid, cnt = fused_pfn.pfn_from_table(table, meta, w_eff, w_dec,
+                                               cfg)
+    fused = bev.scatter_to_bev(feats, pid, cnt > 0, cfg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    occ = got.ne(0).any(-1)
+    assert torch.equal(occ, want.ne(0).any(-1))
+    assert torch.equal(occ, fused.ne(0).any(-1))
+    torch.testing.assert_close(got, fused, atol=1e-4, rtol=1e-5)
+    if case == "empty":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("n,m,bi,bj", [(45, 19, 32, 16), (300, 200, 256, 64),
+                                       (1024, 1024, 128, 128)])
+def test_iou_tiled_kernel_matches_plain(dev, n, m, bi, bj):
+    rng = np.random.default_rng(n)
+    b1 = torch.from_numpy(_boxes(rng, 2, n, span=8.0)).to(dev)
+    b2 = torch.from_numpy(_boxes(rng, 2, m, span=8.0)).to(dev)
+    before = _build.LAUNCHES["iou_tiled"]
+    got = iou_tiled.rotated_iou_bev_tiled(b1, b2, bi, bj)
+    assert _build.LAUNCHES["iou_tiled"] == before + 1
+    want = iou_tiled.rotated_iou_bev_tiled_plain(b1, b2, bi, bj)
+    one = iou_tiled.rotated_iou_bev_tiled(b1[1], b2[1], bi, bj)
+    dense = iou.rotated_iou_bev(b1[1], b2[1])
+    torch.cuda.synchronize()
+    assert got.shape == (2, n, m)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    assert torch.equal(one, got[1])
+    torch.testing.assert_close(one, dense, atol=1e-3, rtol=0)
+    assert (want > 0).any()
+
+
+def test_iou_tiled_wrapper_refuses_wrong_inputs(dev):
+    boxes = torch.zeros((300, 7), device=dev)
+    with pytest.raises(ValueError):
+        iou_tiled.rotated_iou_bev_tiled(boxes, boxes, 512, 128)
+    with pytest.raises(TypeError):
+        iou_tiled.rotated_iou_bev_tiled(boxes.double(), boxes.double())
+    with pytest.raises(TypeError):
+        stream_pfn.stream_canvas_from_sorted(
+            torch.zeros((1, 8), dtype=torch.int64, device=dev),
+            torch.zeros((1, 8, 4), device=dev), torch.zeros((4, 8),
+                                                            device=dev),
+            torch.zeros((8, 8), device=dev), CFG)

@@ -136,7 +136,13 @@ def test_port_imports_no_jax():
     rel = {os.path.relpath(f, ROOT) for f in files}
     for module in ("data/synthetic.py", "train/loop.py", "train/step.py",
                    "train/state.py", "train/checkpoint.py", "ops/assign.py",
-                   "ops/pfn.py", "ops/sort.py", "ops/binning.py"):
+                   "ops/pfn.py", "ops/sort.py", "ops/binning.py",
+                   "ops/stream_pfn.py", "ops/iou_tiled.py",
+                   "evaluation/pipeline.py", "evaluation/tta.py",
+                   "evaluation/cli.py", "evaluation/map_eval.py",
+                   "evaluation/map_eval_alt.py", "train/prefetch.py",
+                   "data/lyft.py", "data/fixture.py", "data/submission.py",
+                   "reference_cpu/postprocess.py"):
         assert os.path.join("tpu_pillars_torch", module) in rel, module
     for path in files:
         for mod in _imports(path):

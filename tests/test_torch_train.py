@@ -408,6 +408,22 @@ def test_loop_main_on_cpu_logs_and_writes_checkpoint(tmp_path):
     assert int(tree["step"]) == 2
 
 
+def test_loop_main_prefetch_trains_on_the_same_batches(tmp_path):
+    """The default input pipeline (``--prefetch 2``: batches built and moved
+    to the device in a background thread) logs the synchronous run's
+    losses step for step."""
+    def losses(out, extra):
+        loop.main(["--steps", "2", "--batch", "2", "--device", "cpu",
+                   "--out", out] + extra)
+        return [(x["step"], x["loss"], x["cls"], x["loc"], x["dir"])
+                for x in map(json.loads,
+                             open(os.path.join(out, "train.jsonl")))
+                if x["event"] == "train_step"]
+
+    assert (losses(str(tmp_path / "sync"), ["--prefetch", "0"])
+            == losses(str(tmp_path / "ahead"), []))
+
+
 def test_synthetic_scenes_match_jax():
     a = make_scene(np.random.default_rng(21), TCFG)
     b = jax_make_scene(np.random.default_rng(21), CFG)

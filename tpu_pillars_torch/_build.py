@@ -34,11 +34,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # per-source extra flags: these kernels round every product on its own, as
 # plain eager torch does (no fused multiply-add contraction), so each agrees
 # with its plain version
-EXTRA_FLAGS = {"fused_pfn": ["--fmad=false"], "nms_overlap": ["--fmad=false"],
-               "assign": ["--fmad=false"], "pfn": ["--fmad=false"]}
+EXTRA_FLAGS = {name: ["--fmad=false"] for name in (
+    "fused_pfn", "nms_overlap", "assign", "pfn", "stream_pfn", "iou_tiled")}
 
 KERNELS = ("emit", "fused_pfn", "bev_scatter", "nms_overlap", "assign", "pfn",
-           "bitonic_sort", "binning", "bev_gather")
+           "bitonic_sort", "binning", "bev_gather", "stream_pfn", "iou_tiled")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()

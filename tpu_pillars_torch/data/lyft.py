@@ -1,0 +1,178 @@
+"""Lyft Level-5 dataset adapter, numpy + json — copy of
+``tpu_pillars/data/lyft.py``: a dependency-free reimplementation of the
+``lyft_dataset_sdk`` surface the detector needs — nuScenes-style relational
+JSON tables (scene -> sample -> sample_data / sample_annotation, ego_pose,
+calibrated_sensor), float32 lidar ``.bin`` loading and quaternion frame
+transforms. Tables live in one JSON directory, binaries under a data
+directory; ``data/fixture.py`` writes a small one for tests.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from tpu_pillars_torch.geometry.boxes import Box3D
+from tpu_pillars_torch.geometry.quaternion import yaw_from_quat
+from tpu_pillars_torch.geometry.transforms import (
+    Pose, compose, inverse, transform_points,
+)
+
+TABLE_NAMES = (
+    "scene", "sample", "sample_data", "sample_annotation",
+    "ego_pose", "calibrated_sensor", "category", "instance", "sensor",
+)
+
+
+class LyftDataset:
+    """Index the JSON tables; navigate scenes/samples; load lidar + boxes."""
+
+    #: tables that must exist on disk — a root without them is almost
+    #: certainly the wrong directory (e.g. the fixture ROOT instead of the
+    #: json subdir build_fixture returns); silently indexing zero scenes
+    #: used to send downstream epoch iterators into an infinite spin
+    REQUIRED_TABLES = ("scene", "sample", "sample_data",
+                       "ego_pose", "calibrated_sensor")
+
+    def __init__(self, json_path: str, data_path: Optional[str] = None):
+        self.json_path = json_path
+        self.data_path = data_path or os.path.dirname(json_path.rstrip("/"))
+        self.tables: Dict[str, Dict[str, dict]] = {}
+        self.scene_list: List[dict] = []
+        for name in TABLE_NAMES:
+            fp = os.path.join(json_path, f"{name}.json")
+            records = []
+            if os.path.exists(fp):
+                with open(fp) as f:
+                    records = json.load(f)
+            elif name in self.REQUIRED_TABLES:
+                hint = ""
+                sub = os.path.join(json_path, "data", f"{name}.json")
+                if os.path.exists(sub):
+                    hint = (f" (found {sub} — pass the json TABLE dir "
+                            f"{os.path.join(json_path, 'data')!r}, not the "
+                            f"dataset root)")
+                raise FileNotFoundError(
+                    f"LyftDataset: required table {fp} does not exist{hint}")
+            self.tables[name] = {r["token"]: r for r in records}
+            if name == "scene":
+                self.scene_list = records
+        if not self.scene_list:
+            raise ValueError(
+                f"LyftDataset: {json_path} contains an empty scene table")
+
+    def get(self, table: str, token: str) -> dict:
+        return self.tables[table][token]
+
+    # ---- navigation ----
+
+    def sample_tokens(self, scene_token: Optional[str] = None) -> List[str]:
+        """All sample tokens (optionally one scene), in temporal order."""
+        scenes = ([self.get("scene", scene_token)] if scene_token
+                  else self.scene_list)
+        out: List[str] = []
+        for scene in scenes:
+            tok = scene["first_sample_token"]
+            while tok:
+                out.append(tok)
+                tok = self.get("sample", tok).get("next", "")
+        return out
+
+    def lidar_sample_data(self, sample_token: str) -> dict:
+        """The LIDAR_TOP sample_data record of a sample (keyframe)."""
+        sample = self.get("sample", sample_token)
+        if "data" in sample and "LIDAR_TOP" in sample["data"]:
+            return self.get("sample_data", sample["data"]["LIDAR_TOP"])
+        for sd in self.tables["sample_data"].values():
+            if sd["sample_token"] == sample_token and sd.get("is_key_frame"):
+                channel = sd.get("channel", "")
+                if not channel:
+                    cal = self.get("calibrated_sensor",
+                                   sd["calibrated_sensor_token"])
+                    sensor = self.get("sensor", cal["sensor_token"])
+                    channel = sensor.get("channel", "")
+                if channel == "LIDAR_TOP":
+                    return sd
+        raise KeyError(f"no LIDAR_TOP keyframe for sample {sample_token}")
+
+    # ---- point clouds ----
+
+    def load_point_cloud(self, sample_data: dict) -> np.ndarray:
+        """Lyft lidar .bin -> (N, 5) float32 [x, y, z, intensity, ring]."""
+        path = os.path.join(self.data_path, sample_data["filename"])
+        pts = np.fromfile(path, dtype=np.float32)
+        return pts.reshape(-1, 5)
+
+    # ---- frames ----
+
+    def lidar_to_global(self, sample_data: dict) -> Pose:
+        cal = self.get("calibrated_sensor", sample_data["calibrated_sensor_token"])
+        ego = self.get("ego_pose", sample_data["ego_pose_token"])
+        return compose(Pose.from_record(ego), Pose.from_record(cal))
+
+    def global_to_lidar(self, sample_data: dict) -> Pose:
+        return inverse(self.lidar_to_global(sample_data))
+
+    # ---- annotations ----
+
+    def _category_name(self, ann: dict) -> str:
+        if "category_name" in ann:
+            return ann["category_name"]
+        inst = self.get("instance", ann["instance_token"])
+        return self.get("category", inst["category_token"])["name"]
+
+    def get_boxes_global(self, sample_token: str) -> List[Box3D]:
+        """GT boxes of a sample in the GLOBAL frame (annotation native)."""
+        out = []
+        for ann in self.tables["sample_annotation"].values():
+            if ann["sample_token"] != sample_token:
+                continue
+            q = np.asarray(ann["rotation"], dtype=np.float64)
+            out.append(Box3D(
+                center=np.asarray(ann["translation"]),
+                wlh=np.asarray(ann["size"]),
+                yaw=float(yaw_from_quat(q)),
+                label=self._category_name(ann),
+                token=sample_token,
+            ))
+        return out
+
+    def get_boxes_lidar(self, sample_token: str) -> List[Box3D]:
+        """GT boxes transformed into the keyframe lidar frame (what the
+        detector trains/evaluates against)."""
+        sd = self.lidar_sample_data(sample_token)
+        g2l = self.global_to_lidar(sd)
+        return [b.transformed(g2l.rotation, g2l.translation)
+                for b in self.get_boxes_global(sample_token)]
+
+    # ---- multi-sweep accumulation (SURVEY.md 'Multi-sweep accumulator') ----
+
+    def load_sweeps(self, sample_token: str, num_sweeps: int) -> np.ndarray:
+        """Accumulate up to `num_sweeps` consecutive lidar sweeps into the
+        keyframe lidar frame, appending a time-lag channel (seconds).
+
+        Returns (N, 6): x, y, z, intensity, ring, dt — feed [:, :4] + [:, 5]
+        to the pillarizer for the multi-sweep config (BASELINE config #4).
+        """
+        ref_sd = self.lidar_sample_data(sample_token)
+        ref_pose_inv = inverse(self.lidar_to_global(ref_sd))
+        ref_t = ref_sd["timestamp"]
+
+        clouds = []
+        sd = ref_sd
+        for _ in range(num_sweeps):
+            pts = self.load_point_cloud(sd)
+            pose = compose(ref_pose_inv, self.lidar_to_global(sd))
+            pts = transform_points(pose, pts)
+            dt = (ref_t - sd["timestamp"]) * 1e-6
+            dt_col = np.full((len(pts), 1), dt, dtype=np.float32)
+            clouds.append(np.concatenate([pts, dt_col], axis=1))
+            prev = sd.get("prev", "")
+            if not prev:
+                break
+            sd = self.get("sample_data", prev)
+        return np.concatenate(clouds, axis=0).astype(np.float32)

@@ -13,8 +13,10 @@ scale-relative degeneracy thresholds are the JAX package's, op for op: the
 NMS overlap kernel (``csrc/nms_overlap.cu``) repeats them with no fused
 multiply-adds, so kernel and plain version round alike.
 
-Boxes are packed ``[x, y, z, w, l, h, yaw]`` (z/h are ignored here); every
-function broadcasts over leading dims.
+Boxes are packed ``[x, y, z, w, l, h, yaw]`` (z/h are ignored by the BEV
+functions); the quad functions broadcast over leading dims, the pairwise
+ones take (N, 7) x (M, 7). ``ops/iou_tiled.py`` holds K7, the tiled
+variant.
 """
 
 from __future__ import annotations
@@ -124,12 +126,59 @@ def rotated_iou_bev(boxes1, boxes2):
     a1 = (boxes1[:, 3] * boxes1[:, 4])[:, None]
     a2 = (boxes2[:, 3] * boxes2[:, 4])[None, :]
     # exact gate: footprints cannot meet beyond the sum of circumradii
+    inter = torch.where(_bev_disjoint(boxes1, boxes2), 0.0, inter)
+    inter = torch.minimum(inter, torch.minimum(a1, a2))
+    union = torch.clamp(a1 + a2 - inter, min=_EPS)
+    return torch.clamp(inter / union, 0.0, 1.0)
+
+
+def _bev_disjoint(boxes1, boxes2):
+    """(N, 7), (M, 7) -> (N, M) bool: pairs whose footprints cannot meet
+    (centre distance beyond the sum of circumradii)."""
     dx = boxes1[:, None, 0] - boxes2[None, :, 0]
     dy = boxes1[:, None, 1] - boxes2[None, :, 1]
     r1 = 0.5 * torch.sqrt(boxes1[:, 3] ** 2 + boxes1[:, 4] ** 2)
     r2 = 0.5 * torch.sqrt(boxes2[:, 3] ** 2 + boxes2[:, 4] ** 2)
     rr = r1[:, None] + r2[None, :]
-    inter = torch.where(dx * dx + dy * dy > rr * rr, 0.0, inter)
-    inter = torch.minimum(inter, torch.minimum(a1, a2))
-    union = torch.clamp(a1 + a2 - inter, min=_EPS)
+    return dx * dx + dy * dy > rr * rr
+
+
+def rotated_iou_bev_chunked(boxes1, boxes2, chunk: int = 4096):
+    """Row-chunked rotated BEV IoU, (N, 7) x (M, 7) -> (N, M), for a large
+    boxes1. As in the JAX package, each chunk of rows is computed in the
+    (M, chunk) orientation, ``rotated_iou_bev(boxes2, rows)``, then
+    transposed: the pair arithmetic runs with boxes2 first, which is what
+    ``ops.nms.rotated_nms`` rounds like. Chunks bound the transient memory;
+    padding rows are never computed."""
+    n = boxes1.shape[0]
+    chunk = max(1, min(chunk, n))
+    parts = [rotated_iou_bev(boxes2, boxes1[s:s + chunk]).T
+             for s in range(0, n, chunk)]
+    if not parts:
+        return boxes1.new_zeros((0, boxes2.shape[0]))
+    return torch.cat(parts, dim=0)
+
+
+def iou_3d(boxes1, boxes2):
+    """Pairwise 3-D IoU, (N, 7) x (M, 7) -> (N, M): rotated BEV
+    intersection times the z overlap, over the volume union."""
+    c1 = corners_bev(boxes1)[:, None]
+    c2 = corners_bev(boxes2)[None, :]
+    inter_bev = convex_quad_intersect_area(c1, c2)
+    z1_lo = boxes1[:, 2] - boxes1[:, 5] / 2
+    z1_hi = boxes1[:, 2] + boxes1[:, 5] / 2
+    z2_lo = boxes2[:, 2] - boxes2[:, 5] / 2
+    z2_hi = boxes2[:, 2] + boxes2[:, 5] / 2
+    z_olap = torch.clamp(
+        torch.minimum(z1_hi[:, None], z2_hi[None, :])
+        - torch.maximum(z1_lo[:, None], z2_lo[None, :]), min=0.0)
+    inter_bev = torch.where(_bev_disjoint(boxes1, boxes2), 0.0, inter_bev)
+    inter_bev = torch.minimum(
+        inter_bev,
+        torch.minimum((boxes1[:, 3] * boxes1[:, 4])[:, None],
+                      (boxes2[:, 3] * boxes2[:, 4])[None, :]))
+    inter = inter_bev * z_olap
+    v1 = (boxes1[:, 3] * boxes1[:, 4] * boxes1[:, 5])[:, None]
+    v2 = (boxes2[:, 3] * boxes2[:, 4] * boxes2[:, 5])[None, :]
+    union = torch.clamp(v1 + v2 - inter, min=_EPS)
     return torch.clamp(inter / union, 0.0, 1.0)

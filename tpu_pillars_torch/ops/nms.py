@@ -10,11 +10,19 @@ never suppresses; ties break by lowest index). Each sweep is one masked
 any-reduction over the (K, K) overlap matrix, batched over samples; the loop
 ends when no sample changed, which costs one host sync per sweep (typically
 < 8 sweeps).
+
+:func:`rotated_nms` is the JAX package's single-set entry: the dense IoU
+matrix (``ops.iou.rotated_iou_bev_chunked``, stock torch ops, as the JAX
+package leaves it to XLA), the strict upper triangle above the threshold,
+then the fixpoint. The serving path's batched, class-blocked NMS on the K4
+overlap kernel is ``ops.nms_overlap.rotated_nms_overlap``.
 """
 
 from __future__ import annotations
 
 import torch
+
+from tpu_pillars_torch.ops.iou import rotated_iou_bev_chunked
 
 
 def nms_fixpoint(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -32,3 +40,16 @@ def nms_fixpoint(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
             break
         keep = new_keep
     return keep
+
+
+def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,
+                valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Greedy rotated BEV NMS over one score-sorted set: boxes (K, 7) in
+    descending score order, scores (K,) (unused: the order is positional),
+    valid (K,) bool (never kept, never suppressing) -> keep (K,) bool."""
+    del scores
+    K = boxes.shape[0]
+    iou = rotated_iou_bev_chunked(boxes, boxes, chunk=min(K, 256))
+    idx = torch.arange(K, device=boxes.device)
+    over = (iou > iou_threshold) & (idx[:, None] < idx[None, :])
+    return nms_fixpoint(over[None], valid[None])[0]

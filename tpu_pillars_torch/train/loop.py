@@ -8,6 +8,8 @@ Port of ``tpu_pillars/train/loop.py`` (synthetic data, no augmentation).
 writes ``DIR/train.jsonl`` and ``DIR/ckpt.msgpack``, which both packages'
 ``Detector.from_checkpoint`` serve. ``--device cpu`` runs the kernels'
 plain versions on the CPU (use the default tiny config there).
+``--prefetch N`` (default 2) builds N batches ahead in a background thread
+and moves them to the device there; 0 builds each batch in the step.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from tpu_pillars_torch.config import PillarsConfig, tiny_config
 from tpu_pillars_torch.data.synthetic import make_scene, scenes_to_train_batch
 from tpu_pillars_torch.train.checkpoint import export_inference_checkpoint
+from tpu_pillars_torch.train.prefetch import device_prefetch
 from tpu_pillars_torch.train.state import (
     TrainConfig, TrainState, create_train_state,
 )
@@ -109,6 +112,10 @@ def main(argv=None) -> None:
     p.add_argument("--device", type=str, default=None,
                    help="default: the CUDA card; 'cpu' runs the kernels' "
                         "plain versions")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="input-pipeline depth: batches built ahead in a "
+                        "background thread and moved to the device there "
+                        "(0 = synchronous)")
     args = p.parse_args(argv)
 
     config = PillarsConfig() if args.full_size else tiny_config()
@@ -125,11 +132,15 @@ def main(argv=None) -> None:
             else "cpu")
     logger.log("start", steps=args.steps, batch=args.batch, device=kind,
                full_size=args.full_size, remat=args.remat, accum=args.accum,
+               prefetch=args.prefetch,
                params=sum(x.numel() for x in state.model.parameters()))
     step_fn = make_train_step(config, remat=args.remat,
                               accum_steps=args.accum)
-    fit(state, synthetic_batches(config, tcfg, seed=args.seed), args.steps,
-        step_fn=step_fn, config=config, logger=logger, log_every=1,
+    batches = synthetic_batches(config, tcfg, seed=args.seed)
+    if args.prefetch > 0:
+        batches = device_prefetch(batches, size=args.prefetch, device=device)
+    fit(state, batches, args.steps, step_fn=step_fn, config=config,
+        logger=logger, log_every=1,
         ckpt_path=os.path.join(args.out, "ckpt.msgpack"))
 
 
