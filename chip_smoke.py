@@ -27,9 +27,10 @@ line:
      golden GT and a crowded 16-per-class GT set: best IoU within 2e-5, the
      best GT equal wherever the IoU is positive and not tied within 2e-5.
      On the classic front end's inputs of the same batch: K6 PFN within
-     atol 1e-5 / rtol 1e-5; K10 bitonic sort bit-equal to its plain network
-     and to the stable ``torch.sort``; K8 binning rank and histogram equal;
-     K9 block gather bit-equal to its plain version and to K3's canvas.
+     atol 1e-5 / rtol 1e-5; K10 radix sort (18 and 32 key bits) bit-equal
+     to its plain network and to the stable ``torch.sort``; K8 binning rank
+     and histogram equal; K9 block gather bit-equal to its plain version,
+     to K3's canvas and to ``index_copy_``, its tile ranges equal to theirs.
      Times each (CUDA events, median), with its bound and, where one
      PyTorch call computes the same function, that call's time.
   3. The serving path: ``Detector.from_checkpoint`` on the committed
@@ -45,7 +46,7 @@ line:
      time is printed beside the fused front end's.
      3b. The classic front end (``fused_frontend=False``): the same golden
      check and stage split; K1, K6, K3 and K4 must have launched, K2 not.
-     3c. The drop-ins on the batch: the bitonic sort equals the stable
+     3c. The drop-ins on the batch: the radix sort equals the stable
      sort, the binned pillarizer equals the classic ``PillarBatch``, and K6
      on it then K9 equals the classic canvas bit for bit; K10, K8 and K9
      must have launched.
@@ -448,7 +449,7 @@ def main() -> None:
                 "nms_overlap": "tpu_pillars/ops/nms_pallas.py:82",
                 "assign": "tpu_pillars/ops/assign_pallas.py:143",
                 "pfn": "tpu_pillars/ops/pfn_pallas.py:35",
-                "bitonic_sort": "tpu_pillars/ops/sort_pallas.py:80",
+                "radix_sort": "tpu_pillars/ops/sort_pallas.py:80",
                 "binning": "tpu_pillars/ops/binning_pallas.py:69",
                 "bev_gather": "tpu_pillars/ops/bev_pallas.py:62",
                 "stream_pfn": "tpu_pillars/ops/stream_pfn.py:128",
@@ -923,9 +924,10 @@ def classic_rows(cfg, points, counts, w_pfn, b_pfn, rows):
                     2.0 * slots * D * C))
     del feats_p
 
-    # K10 on the serving batch's pillar ids and points
+    # K10 on the serving batch's pillar ids and points, with the key width
+    # the main path gives it (ids in [0, H*W]: 18 bits) and with 32 bits
     pid = voxelize.pillar_ids(points, counts, cfg)
-    got = sort.bitonic_sort(pid, points)
+    bits = HW.bit_length()
     plain = sort.bitonic_sort_plain(pid, points)
 
     def library_sort():
@@ -934,18 +936,28 @@ def classic_rows(cfg, points, counts, w_pfn, b_pfn, rows):
                                         order[..., None].expand(-1, -1, F))
 
     lib = library_sort()
-    for name, want in (("its plain network", plain),
-                       ("the stable torch.sort", lib)):
-        if not all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, want)):
-            fail(f"K10 bitonic sort differs from {name}")
-    print("K10: keys, order and payload bit-equal to the plain network and "
-          "to the stable torch.sort")
-    rows["bitonic_sort"] = dict(
-        err=0.0, ms=cuda_ms(lambda: sort.bitonic_sort(pid, points), 20),
+    for key_bits in (bits, 32):
+        got = sort.bitonic_sort(pid, points, key_bits=key_bits)
+        for name, want in (("its plain network", plain),
+                           ("the stable torch.sort", lib)):
+            if not all(torch.equal(a, b.to(a.dtype))
+                       for a, b in zip(got, want)):
+                fail(f"K10 radix sort ({key_bits} bits) differs from {name}")
+    print(f"K10: keys, order and payload bit-equal to the plain network and "
+          f"to the stable torch.sort, with {bits} and 32 key bits")
+    ms32 = cuda_ms(lambda: sort.bitonic_sort(pid, points), 20)
+    rows["radix_sort"] = dict(
+        err=0.0,
+        ms=cuda_ms(lambda: sort.bitonic_sort(pid, points, key_bits=bits),
+                   20),
         plain_ms=cuda_ms(lambda: sort.bitonic_sort_plain(pid, points), 3),
         library_ms=cuda_ms(library_sort, 20),
         bound=bound(B * M * (4 + 4 * F) * 2 + B * M * 4,
                     B * M * math.log2(M)))
+    row = rows["radix_sort"]
+    print(f"K10: {row['ms']:.4f} ms ({bits} bits), {ms32:.4f} ms (32 bits); "
+          f"stable torch.sort + gather {row['library_ms']:.4f} ms; kernel / "
+          f"call {row['ms'] / row['library_ms']:.3f}")
     del plain, lib
 
     # K8 on the serving batch's cells
@@ -973,6 +985,9 @@ def classic_rows(cfg, points, counts, w_pfn, b_pfn, rows):
     if not torch.equal(canvas, bev.scatter_to_bev_emit_plain(feats, pid9,
                                                              mask9, cfg)):
         fail("K9 block gather differs from its plain version")
+    if not torch.equal(bev.block_row_ranges(pid9, mask9, HW),
+                       bev.block_row_ranges_plain(pid9, mask9, HW)):
+        fail("K9's tile ranges differ from their plain version")
     if not torch.equal(canvas, bev.scatter_to_bev(feats, pid9, mask9, cfg)):
         fail("K9 block gather differs from K3's canvas")
     library_scatter = index_copy_scatter(feats, pid9, mask9, HW)
@@ -990,13 +1005,17 @@ def classic_rows(cfg, points, counts, w_pfn, b_pfn, rows):
         library_ms=cuda_ms(library_scatter, 20),
         bound=bound(n_pillars * C * 4 + B * P * 5 + canvas.numel() * 4,
                     0.0))
+    row = rows["bev_gather"]
+    print(f"K9: {row['ms']:.4f} ms; index_copy_ into torch.zeros "
+          f"{row['library_ms']:.4f} ms; kernel / call "
+          f"{row['ms'] / row['library_ms']:.3f}")
     del pb, feats, canvas
     torch.cuda.empty_cache()
 
 
 def drop_ins(cfg, det_c, points, counts, w_pfn, b_pfn):
     """The three drop-ins at full width on the serving batch, against the
-    classic path: the bitonic sort (K10), the binned pillarizer (K8) and
+    classic path: the radix sort (K10), the binned pillarizer (K8) and
     K6 then the block gather (K9). Returns their launches."""
     import torch
 
@@ -1030,13 +1049,13 @@ def drop_ins(cfg, det_c, points, counts, w_pfn, b_pfn):
     if not torch.equal(canvas, want_canvas):
         fail("K6 on the binned batch, then K9, differs from the classic "
              "canvas")
-    for name in ("bitonic_sort", "binning", "bev_gather"):
+    for name in ("radix_sort", "binning", "bev_gather"):
         if launches[name] == 0:
             fail(f"kernel {name} did not launch on the drop-in path")
-    print("drop-ins: the bitonic sort equals the stable sort, the binned "
+    print("drop-ins: the radix sort equals the stable sort, the binned "
           "PillarBatch equals the classic one in every field, and K6 then "
           "K9 on it give the classic canvas bit for bit")
-    return {k: launches[k] for k in ("bitonic_sort", "binning", "bev_gather")}
+    return {k: launches[k] for k in ("radix_sort", "binning", "bev_gather")}
 
 
 def stream_iou_drop_ins(cfg, det, points, counts, golden, cands):

@@ -8,7 +8,7 @@ JAX package, so it also runs on a machine that has neither:
 K1 emit and K3 scatter are held bit for bit, K3's backward too; K2 fused
 PFN and K6 PFN to atol 1e-5, rtol 1e-5 (both sides round the same f32
 operations in the same order; the kernels are built without fused
-multiply-adds); K10 bitonic sort, K8 binning and K9 block gather bit for
+multiply-adds); K10 radix sort, K8 binning and K9 block gather bit for
 bit (K10 also against the stable torch.sort, K9 against K3); K11 stream
 front end to atol 1e-5 / rtol 1e-5 with the occupancy equal, and to atol
 1e-4 of the fused path's canvas (K1, K2, K3); K7 tiled IoU to atol 1e-5,
@@ -189,6 +189,9 @@ def test_wrappers_refuse_wrong_inputs(dev):
         sort.bitonic_sort(gid)
     with pytest.raises(ValueError):
         sort.bitonic_sort(gid.int(), pts[:, :4])
+    for bits in (0, 33):
+        with pytest.raises(ValueError):
+            sort.bitonic_sort(gid.int(), key_bits=bits)
     with pytest.raises(TypeError):
         binning.rank_and_hist(gid, gid, 8, 128)
     with pytest.raises(ValueError):
@@ -247,15 +250,19 @@ def test_pfn_kernel_skips_masked_rows(dev):
 
 @pytest.mark.parametrize("m", [1, 1536, 4096, 20000])
 def test_bitonic_kernel_bit_equal(dev, m):
-    """M = 20,000 pads to 32,768: global passes above the 4,096 tile."""
+    """K10's radix kernel (csrc/radix_sort.cu) on 32-bit keys: negatives,
+    INT32_MIN and INT32_MAX, and all-equal keys; M = 20,000 leaves a
+    ragged last tile, M = 1 a tile of one key."""
     rng = np.random.default_rng(m)
     key = torch.from_numpy(rng.integers(-5, 50, (3, m)).astype(np.int32))
     key[0, :3] = 2**31 - 1
+    key[1, -1] = -2**31
+    key[2] = 7
     pay = torch.from_numpy(rng.normal(size=(3, m, 4)).astype(np.float32))
     key, pay = key.to(dev), pay.to(dev)
-    before = _build.LAUNCHES["bitonic_sort"]
+    before = _build.LAUNCHES["radix_sort"]
     got = sort.bitonic_sort(key, pay)
-    assert _build.LAUNCHES["bitonic_sort"] == before + 1
+    assert _build.LAUNCHES["radix_sort"] == before + 1
     want = sort.bitonic_sort_plain(key, pay)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -263,6 +270,34 @@ def test_bitonic_kernel_bit_equal(dev, m):
     assert torch.equal(got[0], ref_k) and torch.equal(got[1].long(), ref_o)
     k2, o2, p2 = sort.bitonic_sort(key)
     assert p2 is None and torch.equal(k2, got[0]) and torch.equal(o2, got[1])
+
+
+@pytest.mark.parametrize("b, m, key_bits", [
+    (1, 5000, 18), (8, 131072, 18), (3, 20000, 1), (3, 20000, 9),
+    (3, 20000, 10), (3, 20000, 27), (3, 20000, 32)])
+def test_radix_kernel_key_bits(dev, b, m, key_bits):
+    """Keys in [0, 2^key_bits), a third of them the largest value (the
+    pillar sort's invalid sentinel), through 1, 2, 3 and 4 digit passes;
+    F = 5 takes the payload's scalar route. Against the stable torch.sort
+    and, below 2^17 keys, the plain network."""
+    rng = np.random.default_rng(key_bits)
+    hi = 2**key_bits - 1
+    key = rng.integers(0, min(hi, 160_000) + 1, (b, m)).astype(np.int64)
+    key[rng.uniform(size=(b, m)) < 1 / 3] = min(hi, 160_000)
+    key = torch.from_numpy(key.astype(np.int32)).to(dev)
+    for f in (4, 5):
+        pay = torch.randn((b, m, f), device=dev,
+                          generator=torch.Generator(dev).manual_seed(f))
+        got = sort.bitonic_sort(key, pay, key_bits=key_bits)
+        ref_k, ref_o = torch.sort(key, dim=1, stable=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref_k)
+        assert torch.equal(got[1].long(), ref_o)
+        assert torch.equal(got[2], torch.gather(
+            pay, 1, ref_o[..., None].expand(-1, -1, f)))
+        if m < 2**17:
+            want = sort.bitonic_sort_plain(key, pay)
+            assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
 @pytest.mark.parametrize("case", ["random", "one_cell", "budget", "empty"])
@@ -286,18 +321,36 @@ def test_binning_kernel_bit_equal(dev, case):
         assert torch.equal(getattr(got_b, name), getattr(want_b, name)), name
 
 
-@pytest.mark.parametrize("case", ["random", "budget", "dense", "empty"])
+@pytest.mark.parametrize("case", ["random", "budget", "dense", "full_tile",
+                                  "empty"])
 def test_bev_gather_kernel_bit_equal(dev, case):
+    """K9 against its plain version and K3; its sidecar's tile ranges
+    against their plain version. "full_tile": sample 0 fills every cell of
+    one tile and then holds cell HW - 1, sample 1 holds only HW - 1."""
     if case == "dense":
         cfg = CFG
         pid = torch.arange(cfg.max_pillars, dtype=torch.int32,
                            device=dev).expand(2, -1).contiguous()
         mask = torch.ones_like(pid, dtype=torch.bool)
+    elif case == "full_tile":
+        cfg = CFG
+        hw, tile = cfg.grid_h * cfg.grid_w, bev.GATHER_TILE_CELLS
+        pid = torch.zeros((2, tile + 9), dtype=torch.int32)
+        mask = torch.zeros_like(pid, dtype=torch.bool)
+        pid[0, :tile + 1] = torch.cat([torch.arange(5 * tile, 6 * tile),
+                                       torch.tensor([hw - 1])])
+        mask[0, :tile + 1] = True
+        pid[1, 0] = hw - 1
+        mask[1, 0] = True
+        pid, mask = pid.to(dev), mask.to(dev)
     else:
         cfg, batch = _classic_batch(case, dev)
         pid = (batch.coords[..., 0] * cfg.grid_w
                + batch.coords[..., 1]).to(torch.int32)
         mask = batch.pillar_mask
+    hw = cfg.grid_h * cfg.grid_w
+    assert torch.equal(bev.block_row_ranges(pid, mask, hw),
+                       bev.block_row_ranges_plain(pid, mask, hw))
     gen = torch.Generator(dev).manual_seed(2)
     for c in (64, 30):                      # 16-byte and scalar stores
         feats = torch.randn(pid.shape + (c,), device=dev, generator=gen)

@@ -38,7 +38,7 @@ EXTRA_FLAGS = {name: ["--fmad=false"] for name in (
     "fused_pfn", "nms_overlap", "assign", "pfn", "stream_pfn", "iou_tiled")}
 
 KERNELS = ("emit", "fused_pfn", "bev_scatter", "nms_overlap", "assign", "pfn",
-           "bitonic_sort", "binning", "bev_gather", "stream_pfn", "iou_tiled")
+           "radix_sort", "binning", "bev_gather", "stream_pfn", "iou_tiled")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _lock = threading.Lock()

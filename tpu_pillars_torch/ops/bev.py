@@ -15,8 +15,12 @@ K9, :func:`scatter_to_bev_emit` (port of ``bev_pallas.py``
 ``scatter_to_bev_emit``), computes the same canvas as a gather: it needs
 the pillars of each sample in ascending id order (masked pillars last),
 which both pillarizers guarantee (canonical spec rule 3,
-``ops/voxelize.py``). On a CUDA tensor it launches ``csrc/bev_gather.cu``;
-on a CPU tensor it runs :func:`scatter_to_bev_emit_plain`.
+``ops/voxelize.py``). On a CUDA tensor it launches ``csrc/bev_gather.cu``:
+a sidecar, :func:`block_row_ranges`, gives each tile of
+``GATHER_TILE_CELLS`` cells its first row, as the JAX wrapper's comparison
+count does, and one block per (tile, sample) writes every tile once.
+Both kernels take the tile size from here. On a CPU tensor it runs
+:func:`scatter_to_bev_emit_plain`.
 """
 
 from __future__ import annotations
@@ -25,6 +29,9 @@ import torch
 
 from tpu_pillars_torch import _build
 from tpu_pillars_torch.config import PillarsConfig
+
+# canvas cells per tile of K9, handed to both of its kernels
+GATHER_TILE_CELLS = 64
 
 
 def _check(feats, pid, mask):
@@ -126,13 +133,54 @@ def scatter_to_bev_auto(pillar_features, coords, pillar_mask,
     return scatter_to_bev(pillar_features, pid, pillar_mask, config)
 
 
+def block_row_ranges(pid_per, pillar_mask, hw: int):
+    """K9's sidecar: (B, P) int32 ids, (B, P) bool validity, with
+    ``where(pillar_mask, pid_per, hw)`` ascending per sample -> lo (B, T + 1)
+    int32, T = ceil(hw / GATHER_TILE_CELLS): ``lo[b, t]`` is the first row
+    whose effective id reaches ``t * GATHER_TILE_CELLS`` (the JAX wrapper's
+    comparison count ``(pid_eff[:, :, None] < bounds).sum(1)``). Tile t's
+    pillars are rows ``lo[b, t]:lo[b, t + 1]``."""
+    if pid_per.dtype != torch.int32 or pillar_mask.dtype != torch.bool \
+            or pid_per.dim() != 2 or pillar_mask.shape != pid_per.shape:
+        raise TypeError(f"block_row_ranges wants (B, P) int32 ids and a "
+                        f"(B, P) bool mask, got {pid_per.dtype} "
+                        f"{tuple(pid_per.shape)}, {pillar_mask.dtype} "
+                        f"{tuple(pillar_mask.shape)}")
+    if pid_per.device != pillar_mask.device:
+        raise ValueError("block_row_ranges inputs lie on different devices")
+    if pid_per.device.type != "cuda":
+        return block_row_ranges_plain(pid_per, pillar_mask, hw)
+    B, P = pid_per.shape
+    tiles = -(-hw // GATHER_TILE_CELLS)
+    pid = pid_per.contiguous()
+    mask = pillar_mask.contiguous()
+    lo = torch.empty((B, tiles + 1), dtype=torch.int32, device=pid.device)
+    fn = _build.function("bev_gather", "bev_row_ranges", "pppiiii")
+    err = fn(pid.data_ptr(), mask.data_ptr(), lo.data_ptr(), B, P, hw,
+             GATHER_TILE_CELLS, _build.stream_ptr(pid))
+    _build.check(err, "block_row_ranges")
+    return lo
+
+
+def block_row_ranges_plain(pid_per, pillar_mask, hw: int):
+    """Plain PyTorch version of :func:`block_row_ranges`: one
+    ``searchsorted`` of the tile starts in the effective ids."""
+    B = pid_per.shape[0]
+    tiles = -(-hw // GATHER_TILE_CELLS)
+    eff = torch.where(pillar_mask, pid_per, hw).contiguous()
+    starts = torch.arange(tiles + 1, dtype=torch.int32,
+                          device=eff.device) * GATHER_TILE_CELLS
+    return torch.searchsorted(eff, starts.expand(B, -1).contiguous()).to(
+        torch.int32)
+
+
 def scatter_to_bev_emit(pillar_features, pid_per, pillar_mask,
                         config: PillarsConfig):
     """K9: (B, P, C) f32 features, (B, P) int32 ids, (B, P) bool validity
     -> (B, H, W, C) f32 canvas, bit-identical to :func:`scatter_to_bev`.
     PRECONDITION: ``where(pillar_mask, pid_per, H*W)`` ascends along P in
     every sample (the pillarizers' order); other orders give a wrong
-    canvas."""
+    canvas. Not checked here: that would need a sync with the card."""
     _check(pillar_features, pid_per, pillar_mask)
     if pillar_features.device.type != "cuda":
         return scatter_to_bev_emit_plain(pillar_features, pid_per,
@@ -142,11 +190,13 @@ def scatter_to_bev_emit(pillar_features, pid_per, pillar_mask,
     feats = pillar_features.contiguous()
     pid = pid_per.contiguous()
     mask = pillar_mask.contiguous()
+    lo = block_row_ranges(pid, mask, H * W)
     canvas = torch.empty((B, H, W, C), dtype=torch.float32,
                          device=feats.device)
-    fn = _build.function("bev_gather", "bev_gather", "ppppiiii")
+    fn = _build.function("bev_gather", "bev_gather", "pppppiiiii")
     err = fn(feats.data_ptr(), pid.data_ptr(), mask.data_ptr(),
-             canvas.data_ptr(), B, P, C, H * W, _build.stream_ptr(feats))
+             lo.data_ptr(), canvas.data_ptr(), B, P, C, H * W,
+             GATHER_TILE_CELLS, _build.stream_ptr(feats))
     _build.check(err, "scatter_to_bev_emit")
     _build.LAUNCHES["bev_gather"] += 1
     return canvas
