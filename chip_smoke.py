@@ -12,7 +12,7 @@ line:
   2. On a batch of 8 lidar-like sweeps of ~100k points at the full
      ``PillarsConfig()``, run each kernel and its plain PyTorch version on
      the card on the same inputs: K1 emit and K3 scatter must be bit-equal
-     (K3's backward too), K2 fused PFN within atol 1e-5 / rtol 1e-5, K4 NMS
+     (K3 also to ``index_copy_`` and K9, and K3's backward), K2 fused PFN within atol 1e-5 / rtol 1e-5, K4 NMS
      overlap equal except pairs whose IoU lies within 1e-4 of the
      threshold. K11 stream front end within atol 1e-5 / rtol 1e-5 of its
      plain version and atol 1e-4 / rtol 1e-5 of K3's fused canvas, the
@@ -301,12 +301,19 @@ def main() -> None:
     library_scatter = index_copy_scatter(feats, pid, mask, HW)
     if not torch.equal(library_scatter().reshape(canvas.shape), canvas):
         fail("K3 yardstick index_copy_ differs from the kernel")
+    if not torch.equal(bev.scatter_to_bev_emit(*args3), canvas):
+        fail("K3 differs from K9 on the batch")
     rows["bev_scatter"] = dict(
         err=0.0, ms=cuda_ms(lambda: bev.scatter_to_bev(*args3), 20),
         plain_ms=cuda_ms(lambda: bev.scatter_to_bev_plain(*args3), 5),
         library_ms=cuda_ms(library_scatter, 20),
         bound=bound(n_pillars * C * 4 + BATCH * P * 5 + canvas.numel() * 4,
                     0.0))
+    row = rows["bev_scatter"]
+    print(f"K3: bit-equal to its plain version, to index_copy_ and to K9; "
+          f"{row['ms']:.4f} ms; index_copy_ into torch.zeros "
+          f"{row['library_ms']:.4f} ms; kernel / call "
+          f"{row['ms'] / row['library_ms']:.3f}")
     # K3's backward (training): the row gather against the plain autograd
     # gradient of the plain scatter, bit for bit
     cot = torch.randn(canvas.shape, device=dev,

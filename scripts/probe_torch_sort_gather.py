@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""K10 (radix sort) and K9 (block gather) on one NVIDIA card, at the serving
-batch's shapes: what ``chip_smoke.py`` does not show.
+"""K10 (radix sort), K9 (block gather) and K3 (BEV scatter) on one NVIDIA
+card, at the serving batch's shapes: what ``chip_smoke.py`` does not show.
 
     python3 scripts/probe_torch_sort_gather.py
 
 Builds the port's kernels, prints the compiler's register and shared-memory
-use of ``csrc/radix_sort.cu`` and ``csrc/bev_gather.cu`` (``-Xptxas -v``),
+use of ``csrc/radix_sort.cu``, ``csrc/bev_gather.cu`` and
+``csrc/bev_scatter.cu`` (``-Xptxas -v``),
 makes ``chip_smoke.py``'s batch (8 lidar-like sweeps of 100,000 points at
 ``PillarsConfig()``), checks each kernel bit for bit against its yardstick
 (the stable ``torch.sort`` + gather; K3 and ``index_copy_``), and prints the
@@ -16,7 +17,9 @@ for:
 * K9 on K6's features of the classic batch, and again with every pillar
   masked (zeros only: the fill alone), beside a plain ``zero_()`` of a
   canvas of the same size (the card's write rate, for scale) and
-  ``index_copy_`` into ``torch.zeros``.
+  ``index_copy_`` into ``torch.zeros``;
+* K3 on the same inputs (bit-equal to K9), and again with every pillar
+  masked.
 
 Prints the card (``nvidia-smi`` name and power limit) and one JSON line.
 Needs a card; imports nothing of JAX. Under Nsight Compute, where the
@@ -42,7 +45,7 @@ def ptxas_report(build_dir):
 
     out = {}
     os.makedirs(build_dir, exist_ok=True)
-    for name in ("radix_sort", "bev_gather"):
+    for name in ("radix_sort", "bev_gather", "bev_scatter"):
         cmd = ([_build._nvcc()] + _build.NVCC_FLAGS + ["-Xptxas", "-v", "-o",
                os.path.join(build_dir, f"probe_{name}.so"),
                str(_build.SRC_DIR / f"{name}.cu")])
@@ -164,6 +167,26 @@ def main() -> None:
         "index_copy_": device_ms(library),
     }
     for what, per in res["device_ms"].items():
+        print(f"device time by kernel, {what}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in per.items()))
+    # K3 on the same inputs, one launch into torch.empty
+    k3 = bev.scatter_to_bev(feats, pid9, mask9, cfg)
+    ok = (torch.equal(k3, canvas)
+          and not bev.scatter_to_bev(feats, pid9, none9, cfg).any())
+    print(f"K3: bit-equal to K9, zeros with every pillar masked: {ok}")
+    if not ok:
+        sys.exit(1)
+    del k3
+    k3_ms = {
+        "bev_scatter": device_ms(
+            lambda: bev.scatter_to_bev(feats, pid9, mask9, cfg)),
+        "bev_scatter_all_masked": device_ms(
+            lambda: bev.scatter_to_bev(feats, pid9, none9, cfg)),
+    }
+    k3_ms["zero_"] = device_ms(fill.zero_)
+    k3_ms["index_copy_"] = device_ms(library)
+    res["device_ms"].update(k3_ms)
+    for what, per in k3_ms.items():
         print(f"device time by kernel, {what}: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in per.items()))
     res["canvas_bytes"] = canvas.numel() * 4

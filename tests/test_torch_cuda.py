@@ -20,7 +20,9 @@ not tied within 2e-5; the detector's packed output on the card against the
 same detector on the CPU at the tolerance of
 tests/test_detector_e2e.py::test_jitted_pipeline_matches_cpu_reference; two
 training steps on the card against the same steps on the CPU (loss rtol
-1e-3, equal positives)."""
+1e-3, equal positives). K3 and K4 also write every element of memory that
+held NaN / 0xFF before the call; with two cards, every kernel launches on
+``cuda:1`` while ``cuda:0`` is current."""
 
 import numpy as np
 import pytest
@@ -140,6 +142,68 @@ def test_scatter_kernel_bit_equal(dev):
     assert torch.equal(got, want)
 
 
+def _poison(shape, dtype, value, dev):
+    """Fill a block of ``shape`` and free it, so that the caching allocator
+    hands the same memory to the next allocation of that size: an element
+    the kernel leaves unwritten then reads ``value``."""
+    junk = torch.full(shape, value, dtype=dtype, device=dev)
+    del junk
+
+
+def _ascending_ids(rng, b, p, hw, tile):
+    """(b, p) int32 ids and bool mask, the effective ids ascending, junk in
+    the masked rows: sample 1 holds no valid pillar; every other sample a
+    full tile of consecutive cells (tile 5), cell hw - 1, and a random set
+    of other cells whose count varies with the sample."""
+    pid = rng.integers(-5, hw + 5, (b, p)).astype(np.int32)
+    mask = np.zeros((b, p), bool)
+    for s in range(b):
+        if s == 1:
+            continue
+        rand = rng.choice(hw - 1, size=rng.integers(1, p - tile - 1),
+                          replace=False)
+        ids = np.unique(np.concatenate([rand, np.arange(5 * tile, 6 * tile),
+                                        [hw - 1]]))[:p]
+        pid[s, :len(ids)] = ids
+        mask[s, :len(ids)] = True
+    return pid, mask
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("c", [64, 30])             # 16-byte, scalar stores
+def test_scatter_kernel_writes_every_element(dev, b, c):
+    """K3 into memory that held NaN, one launch per call: bit-equal to its
+    plain version, to K9 and to ``index_copy_`` into zeros, on samples with
+    no pillar, a full tile of consecutive cells, cell HW - 1 and random
+    ids (junk ids in the masked rows)."""
+    cfg = CFG
+    hw = cfg.grid_h * cfg.grid_w
+    # 64: the cells of one K3 block (kTileCells in csrc/bev_scatter.cu)
+    pid, mask = _ascending_ids(np.random.default_rng(b * 100 + c), b,
+                               cfg.max_pillars, hw, 64)
+    pid, mask = torch.from_numpy(pid).to(dev), torch.from_numpy(mask).to(dev)
+    feats = torch.randn((b, cfg.max_pillars, c), device=dev,
+                        generator=torch.Generator(dev).manual_seed(c))
+    shape = (b, cfg.grid_h, cfg.grid_w, c)
+    _poison(shape, torch.float32, float("nan"), dev)
+    before = _build.LAUNCHES["bev_scatter"]
+    got = bev.scatter_to_bev(feats, pid, mask, cfg)
+    assert _build.LAUNCHES["bev_scatter"] == before + 1
+    want = bev.scatter_to_bev_plain(feats, pid, mask, cfg)
+    flat = (pid.long() + torch.arange(b, device=dev)[:, None] * hw)[mask]
+    lib = torch.zeros((b * hw, c), device=dev).index_copy_(0, flat,
+                                                           feats[mask])
+    torch.cuda.synchronize()
+    assert got.shape == shape and not got.isnan().any()
+    assert torch.equal(got, want)
+    assert torch.equal(got, lib.reshape(shape))
+    assert torch.equal(got, bev.scatter_to_bev_emit(feats, pid, mask, cfg))
+    if b > 1:
+        assert not got[1].any()
+    assert torch.equal(got.reshape(b, hw, c)[0, hw - 1],
+                       feats[0, int(mask[0].sum()) - 1])
+
+
 def _boxes(rng, batch, n, span):
     b = np.zeros((batch, n, 7), dtype=np.float32)
     b[..., 0:2] = rng.uniform(-span, span, (batch, n, 2))
@@ -166,6 +230,50 @@ def test_overlap_kernel_matches_plain(dev, k):
         b, j, i = bad.unbind(1)
         pair = iou.rotated_iou_bev(boxes[b, j].double().cpu(),
                                    boxes[b, i].double().cpu()).diagonal()
+        assert (pair - 0.2).abs().max() < 1e-4
+
+
+@pytest.mark.parametrize("b, k, layout", [
+    (1, 1, "random"), (8, 17, "random"), (1, 1000, "random"),
+    (8, 1024, "random"), (8, 1024, "far"), (1, 1000, "piled"),
+    (8, 1024, "piled")])
+def test_overlap_kernel_writes_every_byte(dev, b, k, layout):
+    """K4 into memory that held 0xFF, one launch per call: every byte 0 or
+    1, the diagonal and the lower triangle 0, and equal to the plain version
+    except pairs whose IoU lies within 1e-4 of the threshold. "far": no two
+    boxes within reach of each other (no pair passes the gate); "piled":
+    every box on one spot (every pair passes it)."""
+    rng = np.random.default_rng(k + b)
+    boxes = _boxes(rng, b, k, span=8.0 + k / 64)
+    if layout == "far":
+        grid = np.arange(k)
+        boxes[..., 0] = 20.0 * (grid % 64)
+        boxes[..., 1] = 20.0 * (grid // 64)
+    elif layout == "piled":
+        boxes[..., 0:2] = rng.uniform(-0.01, 0.01, (b, k, 2))
+    boxes = torch.from_numpy(boxes).to(dev)
+    _poison((b, k, k), torch.uint8, 255, dev)
+    before = _build.LAUNCHES["nms_overlap"]
+    got = nms_overlap.overlap_matrix(boxes, 0.2)
+    assert _build.LAUNCHES["nms_overlap"] == before + 1
+    want = nms_overlap.overlap_matrix_plain(boxes, 0.2)
+    torch.cuda.synchronize()
+    assert got.shape == (b, k, k) and got.dtype == torch.bool
+    assert (got.view(torch.uint8) <= 1).all()
+    assert not got.tril().any()
+    pay = nms_overlap.payloads(boxes)
+    d = pay[:, :, None, 8:10] - pay[:, None, :, 8:10]
+    rr = pay[:, :, None, 11] + pay[:, None, :, 11]
+    gate = (d * d).sum(-1) - rr * rr <= 0.0
+    if layout == "far":
+        assert not gate.triu(1).any() and not want.any()
+    if layout == "piled":
+        assert gate.all() and (k == 1 or want.any())
+    bad = (got != want).nonzero().cpu()
+    if len(bad):
+        b_, j, i = bad.unbind(1)
+        pair = iou.rotated_iou_bev(boxes[b_, j].double().cpu(),
+                                   boxes[b_, i].double().cpu()).diagonal()
         assert (pair - 0.2).abs().max() < 1e-4
 
 
@@ -361,6 +469,76 @@ def test_bev_gather_kernel_bit_equal(dev, case):
         torch.cuda.synchronize()
         assert torch.equal(got, want)
         assert torch.equal(got, bev.scatter_to_bev(feats, pid, mask, cfg))
+
+
+def _one_call_per_kernel(dev):
+    """Every kernel's wrapper once, on inputs made from seeds on ``dev``:
+    {kernel: its output tensors}."""
+    cfg, gid, pts = _sorted_centered("random", dev)
+    hw = cfg.grid_h * cfg.grid_w
+    rng = np.random.default_rng(1)
+    D, C = cfg.num_decorated_features, cfg.pfn_channels
+    w = torch.from_numpy((rng.normal(size=(D, C)) * 0.3).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(C,)).astype(np.float32))
+    w, b = w.to(dev), b.to(dev)
+    w_eff, w_dec = fused_pfn.fold_decoration(w, b, cfg)
+    out = {}
+    table, meta = emit.emit_table(gid, pts, cfg.max_points_per_pillar,
+                                  cfg.max_pillars, hw)
+    out["emit"] = (table, meta)
+    feats, pid, cnt = fused_pfn.pfn_from_table(table, meta, w_eff, w_dec,
+                                               cfg)
+    out["fused_pfn"] = (feats,)
+    out["bev_scatter"] = (bev.scatter_to_bev(feats, pid, cnt > 0, cfg),)
+    out["bev_gather"] = (bev.scatter_to_bev_emit(feats, pid, cnt > 0, cfg),)
+    out["stream_pfn"] = (stream_pfn.stream_canvas_from_sorted(
+        gid, pts, w_eff, w_dec, cfg),)
+    boxes = torch.from_numpy(_boxes(np.random.default_rng(2), 2, 100,
+                                    8.0)).to(dev)
+    out["nms_overlap"] = (nms_overlap.overlap_matrix(boxes, 0.2),)
+    out["iou_tiled"] = (iou_tiled.rotated_iou_bev_tiled(boxes, boxes),)
+    pts_raw, ns = _cloud(np.random.default_rng(3), [3000, 1000])
+    pts_raw, ns = torch.from_numpy(pts_raw).to(dev), torch.from_numpy(ns).to(
+        dev)
+    batch = emit.pillarize_batch_emit(pts_raw, ns, cfg)
+    B, P, N, _ = batch.features.shape
+    out["pfn"] = (pfn.pfn_fused(batch.features.reshape(B * P, N, D),
+                                batch.mask.reshape(B * P, N), w, b),)
+    key = torch.from_numpy(rng.integers(0, 5000, (3, 3000)).astype(
+        np.int32)).to(dev)
+    out["radix_sort"] = sort.bitonic_sort(key)[:2]
+    rows, cols = binning.cell_rows_cols(pts_raw, ns, cfg)
+    out["binning"] = binning.rank_and_hist(rows, cols, cfg.grid_h,
+                                           binning.padded_width(cfg))
+    gt, cls, valid = _gt_scene(np.random.default_rng(0), 2, 20)
+    gt_c, gv_c = group_gt_by_class(torch.from_numpy(gt).to(dev),
+                                   torch.from_numpy(cls).to(dev),
+                                   torch.from_numpy(valid).to(dev),
+                                   cfg.num_classes, 16)
+    out["assign"] = assign.windowed_best_iou(gt_c, gv_c, cfg)
+    return out
+
+
+def test_kernels_launch_on_their_inputs_device(dev):
+    """Every kernel on ``cuda:1`` while ``cuda:0`` is the current device:
+    each launches on its inputs' card (``_build.launch``) and gives what it
+    gives on ``cuda:0``, and the current device stays ``cuda:0``."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: launches on cuda:1")
+    torch.cuda.set_device(0)
+    _build.reset_launches()
+    want = _one_call_per_kernel(torch.device("cuda:0"))
+    got = _one_call_per_kernel(torch.device("cuda:1"))
+    torch.cuda.synchronize(0)
+    torch.cuda.synchronize(1)
+    assert torch.cuda.current_device() == 0
+    assert sorted(got) == sorted(_build.KERNELS)
+    assert all(_build.LAUNCHES[n] == 2 for n in _build.KERNELS), \
+        _build.LAUNCHES
+    for name in _build.KERNELS:
+        for a, b in zip(got[name], want[name]):
+            assert a.device == torch.device("cuda:1"), name
+            assert torch.equal(a.cpu(), b.cpu()), name
 
 
 def _random_state_dict(cfg, seed):

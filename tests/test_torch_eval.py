@@ -328,15 +328,19 @@ def test_evaluate_dataset_matches_jax(detectors, fixture_dirs, tmp_path):
         assert len(submission.parse_prediction_string(s)) == len(gpred[tok])
 
 
-def test_cli_matches_jax_mAP(detectors, fixture_dirs, tmp_path, capsys):
-    jdet, _, variables = detectors
-    tdir, jdir = fixture_dirs
-    ckpt = str(tmp_path / "ck.msgpack")
-    with open(ckpt, "wb") as f:
+def _write_ckpt(variables, path):
+    with open(path, "wb") as f:
         f.write(flax_msgpack_bytes({
             "step": np.asarray(0, np.int32), "params": variables["params"],
             "batch_stats": variables["batch_stats"],
             "config_fp": config_fingerprint(TCFG)}))
+    return path
+
+
+def test_cli_matches_jax_mAP(detectors, fixture_dirs, tmp_path, capsys):
+    jdet, _, variables = detectors
+    tdir, jdir = fixture_dirs
+    ckpt = _write_ckpt(variables, str(tmp_path / "ck.msgpack"))
     out = str(tmp_path / "metrics.json")
     sub = str(tmp_path / "sub.csv")
     cli.main(["--data", tdir, "--ckpt", ckpt, "--device", "cpu", "--batch",
@@ -352,14 +356,28 @@ def test_cli_matches_jax_mAP(detectors, fixture_dirs, tmp_path, capsys):
 
 # ---- what is not ported must refuse ---------------------------------------
 
-def test_data_parallel_entry_points_refuse(detectors, fixture_dirs, capsys):
-    _, tdet, _ = detectors
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+def test_data_parallel_entry_points_refuse(detectors, fixture_dirs, tmp_path,
+                                          capsys):
+    """A mesh and ``--dp 2`` are refused, pointing at the roadmap's data
+    parallelism item; ``--dp 1`` is one device, as in the JAX CLI (which
+    builds a mesh only above 1), and scores what ``evaluate_dataset``
+    scores."""
+    _, tdet, variables = detectors
+    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
         evaluate_dataset(tdet, lyft.LyftDataset(fixture_dirs[0]),
                          mesh=object())
     with pytest.raises(SystemExit):
         cli.main(["--data", fixture_dirs[0], "--ckpt", "none", "--dp", "2"])
-    assert "ROADMAP.md" in capsys.readouterr().err
+    assert "Queue 1, item 11" in capsys.readouterr().err
+    ckpt = _write_ckpt(variables, str(tmp_path / "ck.msgpack"))
+    out = str(tmp_path / "metrics.json")
+    cli.main(["--data", fixture_dirs[0], "--ckpt", ckpt, "--device", "cpu",
+              "--batch", "2", "--dp", "1", "--out", out])
+    with open(out) as f:
+        metrics = json.load(f)
+    want, _, _ = evaluate_dataset(tdet, lyft.LyftDataset(fixture_dirs[0]),
+                                  batch_size=2)
+    assert metrics["num_samples"] == 3 and metrics["mAP"] == want
 
 
 # ---- prefetch ---------------------------------------------------------------

@@ -397,31 +397,40 @@ def test_train_entry_points_need_the_card_unless_cpu(monkeypatch):
 
 
 def test_loop_main_on_cpu_logs_and_writes_checkpoint(tmp_path):
+    """``main`` logs every 10 steps and after the last, as the JAX ``main``
+    (``fit``'s default ``log_every``)."""
     out = str(tmp_path / "run")
-    loop.main(["--steps", "2", "--batch", "2", "--device", "cpu",
+    loop.main(["--steps", "11", "--batch", "2", "--device", "cpu",
                "--out", out])
     lines = [json.loads(x) for x in open(os.path.join(out, "train.jsonl"))]
     steps = [x for x in lines if x["event"] == "train_step"]
-    assert [x["step"] for x in steps] == [1, 2]
+    assert [x["step"] for x in steps] == [10, 11]
     assert all(np.isfinite(x["loss"]) for x in steps)
     tree = weights.load_flax_msgpack(os.path.join(out, "ckpt.msgpack"))
-    assert int(tree["step"]) == 2
+    assert int(tree["step"]) == 11
 
 
 def test_loop_main_prefetch_trains_on_the_same_batches(tmp_path):
     """The default input pipeline (``--prefetch 2``: batches built and moved
     to the device in a background thread) logs the synchronous run's
-    losses step for step."""
-    def losses(out, extra):
+    losses and writes its weights, bit for bit."""
+    def run(out, extra):
         loop.main(["--steps", "2", "--batch", "2", "--device", "cpu",
                    "--out", out] + extra)
-        return [(x["step"], x["loss"], x["cls"], x["loc"], x["dir"])
-                for x in map(json.loads,
-                             open(os.path.join(out, "train.jsonl")))
-                if x["event"] == "train_step"]
+        logged = [(x["step"], x["loss"], x["cls"], x["loc"], x["dir"])
+                  for x in map(json.loads,
+                               open(os.path.join(out, "train.jsonl")))
+                  if x["event"] == "train_step"]
+        tree = weights.load_flax_msgpack(os.path.join(out, "ckpt.msgpack"))
+        return logged, jax.tree_util.tree_leaves(
+            {"params": tree["params"], "batch_stats": tree["batch_stats"]})
 
-    assert (losses(str(tmp_path / "sync"), ["--prefetch", "0"])
-            == losses(str(tmp_path / "ahead"), []))
+    (sync_log, sync_w), (ahead_log, ahead_w) = (
+        run(str(tmp_path / "sync"), ["--prefetch", "0"]),
+        run(str(tmp_path / "ahead"), []))
+    assert sync_log == ahead_log and [s for s, *_ in sync_log] == [2]
+    assert len(sync_w) == len(ahead_w) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(sync_w, ahead_w))
 
 
 def test_synthetic_scenes_match_jax():

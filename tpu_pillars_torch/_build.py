@@ -7,13 +7,17 @@ all sources in parallel, into ``tpu_pillars_torch/_build/`` (git-ignored).
 Each library's file name carries a hash of its source and flags, so an
 unchanged tree never rebuilds.
 
-Every entry point returns the ``cudaError_t`` of its launch; :func:`check`
-raises on a non-zero value. Kernels launch on PyTorch's current stream and
-allocate nothing: the Python wrappers allocate outputs with ``torch``.
+Every wrapper launches through :func:`launch`, the one device guard: the
+launch runs with its tensors' device as the current device, on that
+device's current stream, so a tensor on ``cuda:1`` launches on ``cuda:1``
+whatever the calling thread's current device is. Every entry point returns
+the ``cudaError_t`` of its launch, and :func:`launch` raises on a non-zero
+value. Kernels allocate nothing: the Python wrappers allocate outputs with
+``torch``.
 
-``LAUNCHES`` counts each kernel's launches. A wrapper adds one right after it
-launched its kernel, and nowhere else — so a run can show that its main path
-went through the kernels.
+``LAUNCHES`` counts each kernel's launches. :func:`launch` adds one right
+after a kernel launched, and nowhere else (a sidecar launch adds none) — so
+a run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -132,12 +136,26 @@ def function(name: str, symbol: str, sig: str):
     return fn
 
 
-def check(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
-
-
-def stream_ptr(tensor) -> int:
+def launch(kernel: str, symbol: str, sig: str, *args,
+           count: bool = True) -> None:
+    """Launch C entry ``symbol`` of kernel ``kernel`` (``sig`` as for
+    :func:`function`) on ``args``: a tensor passes its data pointer, None a
+    null pointer, anything else goes as it is. Every tensor must lie on one
+    device; the launch runs under ``torch.cuda.device`` of that device, on
+    its current stream. Raises on a launch error; then adds one to
+    ``LAUNCHES[kernel]`` unless ``count`` is false (a sidecar)."""
     import torch
 
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    devices = {a.device for a in args if isinstance(a, torch.Tensor)}
+    if len(devices) != 1:
+        raise ValueError(f"{symbol}: the tensors lie on "
+                         f"{sorted(map(str, devices))}, not on one device")
+    (device,) = devices
+    fn = function(kernel, symbol, sig)
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(device):
+        err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol}: CUDA error {err} at launch")
+    if count:
+        LAUNCHES[kernel] += 1

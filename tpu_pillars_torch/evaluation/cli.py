@@ -9,7 +9,8 @@ Loads a checkpoint into a ``Detector`` on ``--device`` (default: the card;
 the CPU only when asked for), scores Lyft mAP (the competition protocol,
 global frame) over the dataset's samples, prints the per-class AP table,
 and optionally writes the metrics as JSON and the Kaggle submission CSV.
-``--dp`` (data-parallel evaluation) is not ported yet and is refused.
+``--dp`` above 1 (data-parallel evaluation) is not ported yet and is
+refused; ``--dp`` 0 or 1 evaluates on one device, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ def main(argv=None) -> None:
     p.add_argument("--samples", type=int, default=0,
                    help="evaluate only the first N samples (0 = all)")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel evaluation: not ported yet")
+                   help="data-parallel evaluation over N devices: not "
+                        "ported yet, so only 0 or 1 (one device)")
     p.add_argument("--full-size", action="store_true",
                    help="full 400x400 config instead of the tiny config")
     p.add_argument("--tta", action="store_true",
@@ -64,7 +66,7 @@ def main(argv=None) -> None:
 
     from tpu_pillars_torch.evaluation.pipeline import DP_NOT_PORTED
 
-    if args.dp:
+    if args.dp > 1:
         p.error(f"--dp: {DP_NOT_PORTED}")
 
     from tpu_pillars_torch.config import PillarsConfig, tiny_config

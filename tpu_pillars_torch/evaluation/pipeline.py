@@ -5,7 +5,7 @@ and GT as ``EvalBox`` lists in one common frame, score Lyft mAP — port of
 Sweeps go through ``Detector.predict_packed_batch`` in batches; a producer
 thread (``train.prefetch.prefetch``) loads and pads the next batch while
 the card runs the current one. Data-parallel evaluation (the JAX package's
-``mesh`` argument) is not ported yet: ``ROADMAP.md``, Queue 1, item 6
+``mesh`` argument) is not ported yet: ``ROADMAP.md``, Queue 1, item 11
 ("Data parallelism", ``parallel/eval_dp.py``).
 """
 
@@ -24,7 +24,7 @@ from tpu_pillars_torch.geometry.boxes import Box3D
 from tpu_pillars_torch.train.prefetch import prefetch
 
 DP_NOT_PORTED = ("data-parallel evaluation is not ported yet: see "
-                 "ROADMAP.md, Queue 1, item 6 (Data parallelism, "
+                 "ROADMAP.md, Queue 1, item 11 (Data parallelism, "
                  "parallel/eval_dp.py)")
 
 

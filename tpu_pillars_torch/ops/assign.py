@@ -101,7 +101,7 @@ def windowed_best_iou(gt_c, gv_c, config: PillarsConfig):
     Anchor order is class-block (``anchor_planes``). A GT's best anchor is
     the lowest index among ties; an invalid GT reads (-1, 0)."""
     _check(gt_c, gv_c)
-    if gt_c.device.type != "cuda":
+    if gt_c.device.type == "cpu":
         return windowed_best_iou_plain(gt_c, gv_c, config)
     B, C, Gc, _ = gt_c.shape
     if C != config.num_classes or Gc > MAX_GT_PER_CLASS:
@@ -114,12 +114,8 @@ def windowed_best_iou(gt_c, gv_c, config: PillarsConfig):
     best = torch.empty((B, C, Ac), dtype=torch.float32, device=gt_c.device)
     best_gt = torch.empty((B, C, Ac), dtype=torch.int32, device=gt_c.device)
     key = torch.zeros((B, C, Gc), dtype=torch.int64, device=gt_c.device)
-    fn = _build.function("assign", "assign_best_iou", "pppppiiii")
-    err = fn(pay.data_ptr(), planes.data_ptr(), best.data_ptr(),
-             best_gt.data_ptr(), key.data_ptr(), B, C, Gc, Ac,
-             _build.stream_ptr(pay))
-    _build.check(err, "windowed_best_iou")
-    _build.LAUNCHES["assign"] += 1
+    _build.launch("assign", "assign_best_iou", "pppppiiii", pay, planes, best,
+                  best_gt, key, B, C, Gc, Ac)
     # key = (f32 bits | 1 << 31) << 32 | (2^32 - 1 - anchor); 0 = no valid GT
     hi = (key >> 32) & 0xFFFFFFFF
     lo = key & 0xFFFFFFFF

@@ -3,23 +3,24 @@
 Port of ``tpu_pillars/ops/bev_pallas.py`` (``scatter_to_bev_ring``, same
 contract): each valid pillar's C features land at canvas cell ``pid``;
 every other cell is zero. Pillar ids are unique per sample (the emit table
-holds each pillar once), so the result is exact with no atomics. On a CUDA
-tensor :func:`scatter_to_bev` launches ``csrc/bev_scatter.cu``; on a CPU
-tensor it runs :func:`scatter_to_bev_plain`. Training uses
+holds each pillar once) and ascend (masked pillars last), so the result is
+exact with no atomics. On a CUDA tensor :func:`scatter_to_bev` launches
+``csrc/bev_scatter.cu``, one block per tile of 64 cells (fixed in the
+kernel) that finds its own rows and writes every element of the tile once;
+on a CPU tensor it runs :func:`scatter_to_bev_plain`. Training uses
 :func:`scatter_to_bev_diff`: the same forward, and the JAX package's
 row-gather backward (``bev_pallas.py`` ``_ring_diff_bwd``).
 :func:`scatter_to_bev_auto` is the classic front end's entry, with (row,
 col) coords.
 
 K9, :func:`scatter_to_bev_emit` (port of ``bev_pallas.py``
-``scatter_to_bev_emit``), computes the same canvas as a gather: it needs
-the pillars of each sample in ascending id order (masked pillars last),
-which both pillarizers guarantee (canonical spec rule 3,
+``scatter_to_bev_emit``), computes the same canvas under the same
+precondition, which both pillarizers guarantee (canonical spec rule 3,
 ``ops/voxelize.py``). On a CUDA tensor it launches ``csrc/bev_gather.cu``:
 a sidecar, :func:`block_row_ranges`, gives each tile of
 ``GATHER_TILE_CELLS`` cells its first row, as the JAX wrapper's comparison
 count does, and one block per (tile, sample) writes every tile once.
-Both kernels take the tile size from here. On a CPU tensor it runs
+Both of K9's kernels take the tile size from here. On a CPU tensor it runs
 :func:`scatter_to_bev_emit_plain`.
 """
 
@@ -51,9 +52,14 @@ def _check(feats, pid, mask):
 def scatter_to_bev(pillar_features, pid_per, pillar_mask,
                    config: PillarsConfig):
     """(B, P, C) f32 pillar features, (B, P) int32 pillar ids, (B, P) bool
-    validity -> (B, H, W, C) f32 canvas."""
+    validity -> (B, H, W, C) f32 canvas.
+    PRECONDITION (the reference's, ``scatter_to_bev_ring``):
+    ``where(pillar_mask, pid_per, H*W)`` ascends along P in every sample,
+    and the valid ids are unique and lie in [0, H*W) (the emit table's and
+    the pillarizers' order); other orders give a wrong canvas on the card.
+    Not checked here: that would need a sync with the card."""
     _check(pillar_features, pid_per, pillar_mask)
-    if pillar_features.device.type != "cuda":
+    if pillar_features.device.type == "cpu":
         return scatter_to_bev_plain(pillar_features, pid_per, pillar_mask,
                                     config)
     H, W = config.grid_h, config.grid_w
@@ -61,13 +67,10 @@ def scatter_to_bev(pillar_features, pid_per, pillar_mask,
     feats = pillar_features.contiguous()
     pid = pid_per.contiguous()
     mask = pillar_mask.contiguous()
-    canvas = torch.zeros((B, H, W, C), dtype=torch.float32,
+    canvas = torch.empty((B, H, W, C), dtype=torch.float32,
                          device=feats.device)
-    fn = _build.function("bev_scatter", "bev_scatter", "ppppiiii")
-    err = fn(feats.data_ptr(), pid.data_ptr(), mask.data_ptr(),
-             canvas.data_ptr(), B, P, C, H * W, _build.stream_ptr(feats))
-    _build.check(err, "scatter_to_bev")
-    _build.LAUNCHES["bev_scatter"] += 1
+    _build.launch("bev_scatter", "bev_scatter", "ppppiiii", feats, pid, mask,
+                  canvas, B, P, C, H * W)
     return canvas
 
 
@@ -148,17 +151,15 @@ def block_row_ranges(pid_per, pillar_mask, hw: int):
                         f"{tuple(pillar_mask.shape)}")
     if pid_per.device != pillar_mask.device:
         raise ValueError("block_row_ranges inputs lie on different devices")
-    if pid_per.device.type != "cuda":
+    if pid_per.device.type == "cpu":
         return block_row_ranges_plain(pid_per, pillar_mask, hw)
     B, P = pid_per.shape
     tiles = -(-hw // GATHER_TILE_CELLS)
     pid = pid_per.contiguous()
     mask = pillar_mask.contiguous()
     lo = torch.empty((B, tiles + 1), dtype=torch.int32, device=pid.device)
-    fn = _build.function("bev_gather", "bev_row_ranges", "pppiiii")
-    err = fn(pid.data_ptr(), mask.data_ptr(), lo.data_ptr(), B, P, hw,
-             GATHER_TILE_CELLS, _build.stream_ptr(pid))
-    _build.check(err, "block_row_ranges")
+    _build.launch("bev_gather", "bev_row_ranges", "pppiiii", pid, mask, lo, B,
+                  P, hw, GATHER_TILE_CELLS, count=False)
     return lo
 
 
@@ -182,7 +183,7 @@ def scatter_to_bev_emit(pillar_features, pid_per, pillar_mask,
     every sample (the pillarizers' order); other orders give a wrong
     canvas. Not checked here: that would need a sync with the card."""
     _check(pillar_features, pid_per, pillar_mask)
-    if pillar_features.device.type != "cuda":
+    if pillar_features.device.type == "cpu":
         return scatter_to_bev_emit_plain(pillar_features, pid_per,
                                          pillar_mask, config)
     H, W = config.grid_h, config.grid_w
@@ -193,12 +194,8 @@ def scatter_to_bev_emit(pillar_features, pid_per, pillar_mask,
     lo = block_row_ranges(pid, mask, H * W)
     canvas = torch.empty((B, H, W, C), dtype=torch.float32,
                          device=feats.device)
-    fn = _build.function("bev_gather", "bev_gather", "pppppiiiii")
-    err = fn(feats.data_ptr(), pid.data_ptr(), mask.data_ptr(),
-             lo.data_ptr(), canvas.data_ptr(), B, P, C, H * W,
-             GATHER_TILE_CELLS, _build.stream_ptr(feats))
-    _build.check(err, "scatter_to_bev_emit")
-    _build.LAUNCHES["bev_gather"] += 1
+    _build.launch("bev_gather", "bev_gather", "pppppiiiii", feats, pid, mask,
+                  lo, canvas, B, P, C, H * W, GATHER_TILE_CELLS)
     return canvas
 
 

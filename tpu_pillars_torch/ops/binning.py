@@ -47,7 +47,7 @@ def rank_and_hist(rows: torch.Tensor, cols: torch.Tensor, h_bins: int,
     earlier points of the sample in the same cell, 64), 0 for invalid
     points; hist (B, h_bins, w_pad) f32: min(points per cell, 64))."""
     _check(rows, cols)
-    if rows.device.type != "cuda":
+    if rows.device.type == "cpu":
         return rank_and_hist_plain(rows, cols, h_bins, w_pad)
     B, M = rows.shape
     r, c = rows.contiguous(), cols.contiguous()
@@ -56,11 +56,8 @@ def rank_and_hist(rows: torch.Tensor, cols: torch.Tensor, h_bins: int,
                         device=r.device)
     hist = torch.empty((B, h_bins, w_pad), dtype=torch.float32,
                        device=r.device)
-    fn = _build.function("binning", "rank_and_hist", "pppppiiii")
-    err = fn(r.data_ptr(), c.data_ptr(), rank.data_ptr(), count.data_ptr(),
-             hist.data_ptr(), B, M, h_bins, w_pad, _build.stream_ptr(r))
-    _build.check(err, "rank_and_hist")
-    _build.LAUNCHES["binning"] += 1
+    _build.launch("binning", "rank_and_hist", "pppppiiii", r, c, rank, count,
+                  hist, B, M, h_bins, w_pad)
     return rank, hist
 
 

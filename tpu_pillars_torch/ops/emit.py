@@ -53,7 +53,7 @@ def emit_table(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
     points), pts_sorted (B, M, F) f32 -> (table, meta), see module
     docstring."""
     _check(gid_sorted, pts_sorted)
-    if gid_sorted.device.type != "cuda":
+    if gid_sorted.device.type == "cpu":
         return emit_table_plain(gid_sorted, pts_sorted, n_pts, p_budget, hw)
     B, M, F = pts_sorted.shape
     gid = gid_sorted.contiguous()
@@ -62,12 +62,8 @@ def emit_table(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
                         device=gid.device)
     meta = torch.zeros((B * META_ROWS, p_budget), dtype=torch.float32,
                        device=gid.device)
-    fn = _build.function("emit", "emit_table", "ppppiiiiii")
-    err = fn(gid.data_ptr(), pts.data_ptr(), table.data_ptr(),
-             meta.data_ptr(), B, M, F, n_pts, p_budget, hw,
-             _build.stream_ptr(gid))
-    _build.check(err, "emit_table")
-    _build.LAUNCHES["emit"] += 1
+    _build.launch("emit", "emit_table", "ppppiiiiii", gid, pts, table, meta,
+                  B, M, F, n_pts, p_budget, hw)
     return table, meta
 
 

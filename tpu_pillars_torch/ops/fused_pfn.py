@@ -64,7 +64,7 @@ def pfn_from_table(table, meta, w_eff, w_dec, config: PillarsConfig):
     w_eff (F, C), w_dec (8, C) (:func:`fold_decoration`) ->
     (feats (B, P, C) f32, pid_per (B, P) int32, cnt (B, P) f32)."""
     p_rows = meta.shape[1]
-    if table.device.type != "cuda":
+    if table.device.type == "cpu":
         return pfn_from_table_plain(table, meta, w_eff, w_dec, config)
     for name, t in (("table", table), ("meta", meta), ("w_eff", w_eff),
                     ("w_dec", w_dec)):
@@ -82,13 +82,9 @@ def pfn_from_table(table, meta, w_eff, w_dec, config: PillarsConfig):
     table, meta = table.contiguous(), meta.contiguous()
     w_eff, w_dec = w_eff.contiguous(), w_dec.contiguous()
     out = torch.empty((rows, C), dtype=torch.float32, device=table.device)
-    fn = _build.function("fused_pfn", "fused_pfn", "pppppiiiiiiffff")
-    err = fn(table.data_ptr(), meta.data_ptr(), w_eff.data_ptr(),
-             w_dec.data_ptr(), out.data_ptr(), rows, p_rows, N, F, C,
-             config.grid_w, config.x_min, config.y_min, config.voxel_x,
-             config.voxel_y, _build.stream_ptr(table))
-    _build.check(err, "pfn_from_table")
-    _build.LAUNCHES["fused_pfn"] += 1
+    _build.launch("fused_pfn", "fused_pfn", "pppppiiiiiiffff", table, meta,
+                  w_eff, w_dec, out, rows, p_rows, N, F, C, config.grid_w,
+                  config.x_min, config.y_min, config.voxel_x, config.voxel_y)
     return out.reshape(B, p_rows, C), pid, cnt
 
 

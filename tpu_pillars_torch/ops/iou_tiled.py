@@ -136,7 +136,7 @@ def rotated_iou_bev_tiled(boxes1, boxes2, block_i: int = 128,
         raise ValueError(f"rotated_iou_bev_tiled wants (N, 7) x (M, 7) or "
                          f"(B, N, 7) x (B, M, 7), got {tuple(boxes1.shape)}"
                          f" x {tuple(boxes2.shape)}")
-    if boxes1.device.type != "cuda":
+    if boxes1.device.type == "cpu":
         return rotated_iou_bev_tiled_plain(boxes1, boxes2, block_i, block_j)
     if boxes1.dtype != torch.float32 or boxes2.dtype != torch.float32 \
             or boxes2.device != boxes1.device:
@@ -155,11 +155,8 @@ def rotated_iou_bev_tiled(boxes1, boxes2, block_i: int = 128,
                          f"got ({bi}, {bj})")
     p1 = _pad_tiles(_payload(b1), n, bi).contiguous()
     p2 = _pad_tiles(_payload(b2), m, bj).contiguous()
-    fn = _build.function("iou_tiled", "iou_tiled", "pppiiiii")
-    err = fn(p1.data_ptr(), p2.data_ptr(), out.data_ptr(), B, n, m, bi, bj,
-             _build.stream_ptr(out))
-    _build.check(err, "rotated_iou_bev_tiled")
-    _build.LAUNCHES["iou_tiled"] += 1
+    _build.launch("iou_tiled", "iou_tiled", "pppiiiii", p1, p2, out, B, n, m,
+                  bi, bj)
     return out if batched else out[0]
 
 

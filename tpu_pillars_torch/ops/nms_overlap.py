@@ -3,9 +3,12 @@
 Port of ``tpu_pillars/ops/nms_pallas.py``. :func:`overlap_matrix` gives, for
 each sample of a batch of score-sorted candidates, the 0/1 matrix
 ``over[j, i] = (rotated BEV IoU > thr) & (j < i)``. On a CUDA tensor it
-launches ``csrc/nms_overlap.cu`` (one launch for all samples; tiles below
-the diagonal and tiles the circumradius gate proves disjoint skip the
-clipping arithmetic); on a CPU tensor it runs :func:`overlap_matrix_plain`.
+launches ``csrc/nms_overlap.cu`` (one launch for all samples; only tiles
+on or above the diagonal launch, each writing its mirrored tile's zeros,
+and only the pairs that pass the circumradius gate run the clipping
+arithmetic; each block computes its boxes' :func:`payloads` itself, so
+the wrapper is one launch); on a CPU tensor it runs
+:func:`overlap_matrix_plain`.
 The kernel is built with no fused multiply-adds, as eager torch rounds, so
 the two agree except for pairs whose IoU sits within rounding of the
 threshold.
@@ -46,16 +49,12 @@ def overlap_matrix(boxes, iou_threshold: float):
             or boxes.dtype != torch.float32:
         raise ValueError(f"overlap_matrix wants float32 boxes (B, K, 7), got "
                          f"{boxes.dtype} {tuple(boxes.shape)}")
-    if boxes.device.type != "cuda":
+    if boxes.device.type == "cpu":
         return overlap_matrix_plain(boxes, iou_threshold)
     B, K, _ = boxes.shape
-    pay = payloads(boxes).contiguous()
     out = torch.empty((B, K, K), dtype=torch.bool, device=boxes.device)
-    fn = _build.function("nms_overlap", "nms_overlap", "ppiif")
-    err = fn(pay.data_ptr(), out.data_ptr(), B, K, float(iou_threshold),
-             _build.stream_ptr(pay))
-    _build.check(err, "overlap_matrix")
-    _build.LAUNCHES["nms_overlap"] += 1
+    _build.launch("nms_overlap", "nms_overlap", "ppiif", boxes.contiguous(),
+                  out, B, K, float(iou_threshold))
     return out
 
 

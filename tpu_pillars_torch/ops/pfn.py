@@ -41,7 +41,7 @@ def pfn_fused(features, mask, weight, bias):
     bias (C,) -> pillar features (P, C) f32; a pillar with no valid point
     gives 0."""
     _check(features, mask, weight, bias)
-    if features.device.type != "cuda":
+    if features.device.type == "cpu":
         return pfn_fused_plain(features, mask, weight, bias)
     P, N, D = features.shape
     C = weight.shape[1]
@@ -49,11 +49,8 @@ def pfn_fused(features, mask, weight, bias):
     m = mask.contiguous()
     w, b = weight.contiguous(), bias.contiguous()
     out = torch.empty((P, C), dtype=torch.float32, device=feats.device)
-    fn = _build.function("pfn", "pfn_fused", "pppppiiii")
-    err = fn(feats.data_ptr(), m.data_ptr(), w.data_ptr(), b.data_ptr(),
-             out.data_ptr(), P, N, D, C, _build.stream_ptr(feats))
-    _build.check(err, "pfn_fused")
-    _build.LAUNCHES["pfn"] += 1
+    _build.launch("pfn", "pfn_fused", "pppppiiii", feats, m, w, b, out, P, N,
+                  D, C)
     return out
 
 

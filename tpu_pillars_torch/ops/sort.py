@@ -61,7 +61,7 @@ def bitonic_sort(key: torch.Tensor, payload=None, key_bits: int = 32):
     if not isinstance(key_bits, int) or not 1 <= key_bits <= 32:
         raise ValueError(f"bitonic_sort wants key_bits in 1..32, got "
                          f"{key_bits!r}")
-    if key.device.type != "cuda":
+    if key.device.type == "cpu":
         return bitonic_sort_plain(key, payload)
     B, M = key.shape
     if M >= 2**30:
@@ -75,13 +75,8 @@ def bitonic_sort(key: torch.Tensor, payload=None, key_bits: int = 32):
     pay_out = torch.empty_like(pay) if pay is not None else None
     scratch = torch.empty(_radix_scratch_bytes(B, M, key_bits),
                           dtype=torch.uint8, device=k.device)
-    fn = _build.function("radix_sort", "radix_sort", "ppppppiiii")
-    err = fn(k.data_ptr(), pay.data_ptr() if pay is not None else None,
-             key_out.data_ptr(), order.data_ptr(),
-             pay_out.data_ptr() if pay_out is not None else None,
-             scratch.data_ptr(), B, M, F, key_bits, _build.stream_ptr(k))
-    _build.check(err, "bitonic_sort")
-    _build.LAUNCHES["radix_sort"] += 1
+    _build.launch("radix_sort", "radix_sort", "ppppppiiii", k, pay, key_out,
+                  order, pay_out, scratch, B, M, F, key_bits)
     return key_out, order, pay_out
 
 

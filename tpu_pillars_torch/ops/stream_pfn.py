@@ -80,7 +80,7 @@ def stream_canvas_from_sorted(gid_sorted, pts_centered, w_eff, w_dec,
     CELL-CENTRED sorted points + :func:`fold_decoration` weights (w_eff
     (F, C), w_dec (8, C)) -> (B, H, W, C) f32 canvas."""
     _check(gid_sorted, pts_centered, w_eff, w_dec, config)
-    if gid_sorted.device.type != "cuda":
+    if gid_sorted.device.type == "cpu":
         return stream_canvas_from_sorted_plain(gid_sorted, pts_centered,
                                                w_eff, w_dec, config)
     dev = gid_sorted.device
@@ -101,14 +101,10 @@ def stream_canvas_from_sorted(gid_sorted, pts_centered, w_eff, w_dec,
     pts = pts_centered.contiguous()
     w_eff, w_dec = w_eff.contiguous(), w_dec.contiguous()
     canvas = torch.zeros((B, H, W, C), dtype=torch.float32, device=dev)
-    fn = _build.function("stream_pfn", "stream_pfn", "ppppppiiiiiiiiffff")
-    err = fn(gid.data_ptr(), pts.data_ptr(), start_row.data_ptr(),
-             w_eff.data_ptr(), w_dec.data_ptr(), canvas.data_ptr(), B, M, P,
-             config.max_points_per_pillar, F, C, W, H * W, config.x_min,
-             config.y_min, config.voxel_x, config.voxel_y,
-             _build.stream_ptr(canvas))
-    _build.check(err, "stream_canvas_from_sorted")
-    _build.LAUNCHES["stream_pfn"] += 1
+    _build.launch("stream_pfn", "stream_pfn", "ppppppiiiiiiiiffff", gid, pts,
+                  start_row, w_eff, w_dec, canvas, B, M, P,
+                  config.max_points_per_pillar, F, C, W, H * W, config.x_min,
+                  config.y_min, config.voxel_x, config.voxel_y)
     return canvas
 
 

@@ -1,5 +1,6 @@
 """Training driver: seeded synthetic batches in, the training step on the
-card, one JSON line per logged step, an inference checkpoint at the end.
+card, one JSON line every 10 steps and after the last (as the JAX loop
+logs), an inference checkpoint at the end.
 Port of ``tpu_pillars/train/loop.py`` (synthetic data, no augmentation).
 
     python -m tpu_pillars_torch.train.loop --full-size --steps 20 --batch 8 \\
@@ -140,7 +141,7 @@ def main(argv=None) -> None:
     if args.prefetch > 0:
         batches = device_prefetch(batches, size=args.prefetch, device=device)
     fit(state, batches, args.steps, step_fn=step_fn, config=config,
-        logger=logger, log_every=1,
+        logger=logger,
         ckpt_path=os.path.join(args.out, "ckpt.msgpack"))
 
 
