@@ -703,15 +703,21 @@ def assign_row(cfg, dev, gt, err):
         hot += int(((dx * dx + dy * dy <= rr * rr)
                     & gv_c[b, :, :, None]).sum())
     pairs = int(gv_c.sum()) * Ac
-    print(f"K5: {hot} of {pairs} valid (GT, anchor) pairs pass the gate")
+    live = assign.tile_gate_plain(gt_c, cfg).logical_not_() & gv_c[..., None]
+    print(f"K5: {hot} of {pairs} valid (GT, anchor) pairs pass the gate; "
+          f"{int(live.sum())} of {int(gv_c.sum()) * live.shape[-1]} valid "
+          f"(GT, anchor tile) pairs pass the tile gate")
+    # bytes: the GT boxes and validity and the planes read once; best (4 B)
+    # and best_gt (8 B) per (b, c, anchor), gt_best_iou and
+    # gt_best_anchor (4 + 8 B) per GT slot written once
     return dict(
         err=err, ms=cuda_ms(lambda: assign.windowed_best_iou(gt_c, gv_c, cfg),
                             20),
         plain_ms=cuda_ms(lambda: assign.windowed_best_iou_plain(gt_c, gv_c,
                                                                 cfg), 2),
         library_ms=None,
-        bound=bound(planes.numel() * 4 + pay.numel() * 4 + B * C * Ac * 8
-                    + B * C * Gc * 8,
+        bound=bound(gt_c.numel() * 4 + gv_c.numel() + planes.numel() * 4
+                    + B * C * Ac * (4 + 8) + B * C * Gc * (4 + 8),
                     pairs * K5_OPS_GATE + hot * K5_OPS_HOT))
 
 
@@ -1116,7 +1122,7 @@ def stream_iou_drop_ins(cfg, det, points, counts, golden, cands):
         points, counts, w, b, cfg), 10)
     print(f"front end, batch {points.shape[0]}, points to canvas (CUDA "
           f"events, median): fused (sort, centre, K1, K2, K3) "
-          f"{fused_ms:.4f} ms, stream (sort, centre, sidecar, K11) "
+          f"{fused_ms:.4f} ms, stream (sort, centre, K11) "
           f"{stream_ms:.4f} ms")
     return {k: launches[k] for k in ("stream_pfn", "iou_tiled")}
 

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""K10 (radix sort), K9 (block gather) and K3 (BEV scatter) on one NVIDIA
-card, at the serving batch's shapes: what ``chip_smoke.py`` does not show.
+"""K10 (radix sort), K9 (block gather), K3 (BEV scatter) and K11 (stream
+front end) on one NVIDIA card, at the serving batch's shapes: what
+``chip_smoke.py`` does not show.
 
     python3 scripts/probe_torch_sort_gather.py
 
 Builds the port's kernels, prints the compiler's register and shared-memory
-use of ``csrc/radix_sort.cu``, ``csrc/bev_gather.cu`` and
-``csrc/bev_scatter.cu`` (``-Xptxas -v``),
+use of ``csrc/radix_sort.cu``, ``csrc/bev_gather.cu``,
+``csrc/bev_scatter.cu`` and ``csrc/stream_pfn.cu`` (``-Xptxas -v``, each
+with its own flags),
 makes ``chip_smoke.py``'s batch (8 lidar-like sweeps of 100,000 points at
 ``PillarsConfig()``), checks each kernel bit for bit against its yardstick
 (the stable ``torch.sort`` + gather; K3 and ``index_copy_``), and prints the
@@ -19,7 +21,11 @@ for:
   canvas of the same size (the card's write rate, for scale) and
   ``index_copy_`` into ``torch.zeros``;
 * K3 on the same inputs (bit-equal to K9), and again with every pillar
-  masked.
+  masked;
+* K11 on the batch sorted and centred (its budget pass, ``stream_index``
+  and ``stream_cutoff``, and its canvas kernel by name; checked against its
+  plain version), and again with every sample empty (all ids the
+  sentinel: zeros only), beside ``zero_()``.
 
 Prints the card (``nvidia-smi`` name and power limit) and one JSON line.
 Needs a card; imports nothing of JAX. Under Nsight Compute, where the
@@ -40,15 +46,17 @@ sys.path.insert(0, ROOT)
 
 
 def ptxas_report(build_dir):
-    """Registers, shared memory and spills of the two kernels' sources."""
+    """Registers, shared memory and spills of the kernels' sources."""
     from tpu_pillars_torch import _build
 
     out = {}
     os.makedirs(build_dir, exist_ok=True)
-    for name in ("radix_sort", "bev_gather", "bev_scatter"):
-        cmd = ([_build._nvcc()] + _build.NVCC_FLAGS + ["-Xptxas", "-v", "-o",
-               os.path.join(build_dir, f"probe_{name}.so"),
-               str(_build.SRC_DIR / f"{name}.cu")])
+    for name in ("radix_sort", "bev_gather", "bev_scatter", "stream_pfn"):
+        cmd = ([_build._nvcc()] + _build.NVCC_FLAGS
+               + _build.EXTRA_FLAGS.get(name, []) + [
+                   "-Xptxas", "-v", "-o",
+                   os.path.join(build_dir, f"probe_{name}.so"),
+                   str(_build.SRC_DIR / f"{name}.cu")])
         res = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=300)
         out[name] = [ln for ln in (res.stdout + res.stderr).splitlines()
@@ -88,7 +96,9 @@ def main() -> None:
     from tpu_pillars_torch import _build
     from tpu_pillars_torch.config import PillarsConfig
     from tpu_pillars_torch.detector import Detector
-    from tpu_pillars_torch.ops import bev, emit, pfn, sort, voxelize
+    from tpu_pillars_torch.ops import (
+        bev, emit, fused_pfn, pfn, sort, stream_pfn, voxelize,
+    )
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -187,6 +197,38 @@ def main() -> None:
     k3_ms["index_copy_"] = device_ms(library)
     res["device_ms"].update(k3_ms)
     for what, per in k3_ms.items():
+        print(f"device time by kernel, {what}: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in per.items()))
+    # K11 on the batch, sorted and centred, with the checkpoint's folded
+    # PFN; and with every sample empty
+    del library, lo
+    gid_s, pts_s = voxelize.sort_points_by_pillar(points, counts, cfg)
+    pts_c = fused_pfn.center_points(gid_s, pts_s, cfg)
+    w_eff, w_dec = fused_pfn.fold_decoration(w_pfn, b_pfn, cfg)
+    empty_gid = torch.full_like(gid_s, HW)
+    k11 = stream_pfn.stream_canvas_from_sorted(gid_s, pts_c, w_eff, w_dec,
+                                               cfg)
+    plain = stream_pfn.stream_canvas_from_sorted_plain(gid_s, pts_c, w_eff,
+                                                       w_dec, cfg)
+    ok = (torch.allclose(k11, plain, atol=1e-5, rtol=1e-5)
+          and torch.equal(k11.ne(0).any(-1), plain.ne(0).any(-1))
+          and not stream_pfn.stream_canvas_from_sorted(
+              empty_gid, pts_c, w_eff, w_dec, cfg).any())
+    print(f"K11: within 1e-5 of its plain version, occupancy equal, zeros "
+          f"with every sample empty: {ok}")
+    if not ok:
+        sys.exit(1)
+    del k11, plain
+    k11_ms = {
+        "stream_pfn": device_ms(lambda: stream_pfn.stream_canvas_from_sorted(
+            gid_s, pts_c, w_eff, w_dec, cfg)),
+        "stream_pfn_all_empty": device_ms(
+            lambda: stream_pfn.stream_canvas_from_sorted(
+                empty_gid, pts_c, w_eff, w_dec, cfg)),
+        "zero_": device_ms(fill.zero_),
+    }
+    res["device_ms"].update({f"k11_{k}": v for k, v in k11_ms.items()})
+    for what, per in k11_ms.items():
         print(f"device time by kernel, {what}: " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in per.items()))
     res["canvas_bytes"] = canvas.numel() * 4

@@ -9,6 +9,14 @@ on the CPU, at ``tiny_config()``.
   elsewhere (the TPU kernel leaves -1 where its block gate skipped every
   GT, the port 0), the best GT equal wherever the IoU is > 0 and not tied
   within 2e-5, the GT-side best values within 2e-5.
+* K5's block-level gate (``tile_circles``, ``tile_gate_plain``) is
+  conservative: a (GT, tile) pair it skips has no anchor that passes the
+  per-anchor f32 gate, for GT over the grid and beyond, large and rotated,
+  and GT at the per-anchor gate's edge.
+* ``windowed_best_iou_plain`` gives the five semantics the kernel must
+  reproduce exactly (class with no valid GT, anchors whose valid GT all
+  read 0, invalid slot, valid GT with no positive IoU, ties both ways),
+  and agrees with the JAX kernel where the two packages agree.
 * ``make_windowed_assigner`` against JAX's windowed assigner (interpret)
   and JAX's dense ``make_classwise_assigner``, on the four scene families
   of tests/test_assign_pallas.py, under its ``_compare`` contract: Targets
@@ -260,6 +268,134 @@ def test_padded_zero_gt_gives_finite_targets():
     got = _port_targets(gt, cls, valid)
     for name, x in zip(got._fields, got):
         assert np.isfinite(x).all(), name
+
+
+def _anchor_tiles(cfg):
+    """(Ac,) tile index of each class-block anchor: TILE_ROWS feature rows
+    by TILE_LANES anchors of a row, row-major."""
+    Hf, L = cfg.feature_h, cfg.feature_w * len(cfg.anchor_yaws)
+    tc = -(-L // tassign.TILE_LANES)
+    r = np.arange(Hf)[:, None] // tassign.TILE_ROWS
+    lane = np.arange(L)[None, :] // tassign.TILE_LANES
+    return torch.from_numpy((r * tc + lane).reshape(-1))
+
+
+def _gate_scene(rng, b, g, cfg=TCFG):
+    """(b, C, g, 7) GT over the grid and 30 m beyond its edge, half at a
+    class's size and half up to 30 m long, at any yaw; plus, per class,
+    g // 4 GT placed at the per-anchor gate's edge of a random anchor
+    (centre distance = summed circumradii, times 1 +- 1e-6)."""
+    C = cfg.num_classes
+    planes = tassign.anchor_planes(cfg)
+    gt = np.zeros((b, C, g, 7), np.float32)
+    for c, spec in enumerate(cfg.classes):
+        gt[:, c, :, 0] = rng.uniform(cfg.x_min - 30, cfg.x_max + 30, (b, g))
+        gt[:, c, :, 1] = rng.uniform(cfg.y_min - 30, cfg.y_max + 30, (b, g))
+        big = rng.random((b, g)) < 0.5
+        gt[:, c, :, 3] = np.where(big, rng.uniform(0.1, 12.0, (b, g)),
+                                  spec.width)
+        gt[:, c, :, 4] = np.where(big, rng.uniform(0.1, 30.0, (b, g)),
+                                  spec.length)
+        gt[:, c, :, 5] = spec.height
+        gt[:, c, :, 6] = rng.uniform(-np.pi, np.pi, (b, g))
+        for i in range(b):
+            for j in range(g // 4):
+                a = rng.integers(planes.shape[2])
+                gr = 0.5 * np.hypot(gt[i, c, j, 3], gt[i, c, j, 4])
+                d = (gr + planes[c, 11, a]) * (1 + rng.choice([-1e-6, 1e-6]))
+                th = rng.uniform(-np.pi, np.pi)
+                gt[i, c, j, 0] = planes[c, 8, a] + d * np.cos(th)
+                gt[i, c, j, 1] = planes[c, 9, a] + d * np.sin(th)
+    return torch.from_numpy(gt)
+
+
+def test_tile_gate_skips_no_pair_the_anchor_gate_passes():
+    """K5's block-level gate is conservative: wherever ``tile_gate_plain``
+    (the kernel's test, in its f32 order, on ``tile_circles``) skips a
+    (GT, tile) pair, no anchor of the tile passes the per-anchor f32 gate
+    of ``class_iou_plain`` (dx^2 + dy^2 > (r_gt + r_anchor)^2 reads 0). It
+    also skips most pairs: a tile is near square, so its circle is tight."""
+    gt_c = _gate_scene(np.random.default_rng(11), 2, 32)
+    gv_c = torch.ones(gt_c.shape[:3], dtype=torch.bool)
+    skip = tassign.tile_gate_plain(gt_c, TCFG)               # (B, C, G, T)
+    T = tassign.tile_circles(TCFG).shape[1]
+    assert skip.shape == gt_c.shape[:3] + (T,)
+    planes = torch.from_numpy(np.array(tassign.anchor_planes(TCFG)))
+    pay = tassign.gt_payload(gt_c, gv_c)
+    dx = pay[..., 8, None] - planes[None, :, None, 8]
+    dy = pay[..., 9, None] - planes[None, :, None, 9]
+    rr = pay[..., 11, None] + planes[None, :, None, 11]
+    passes = ~(dx * dx + dy * dy > rr * rr)                  # (B, C, G, Ac)
+    tile = _anchor_tiles(TCFG)
+    hit = torch.zeros(skip.shape, dtype=torch.int32).index_add_(
+        3, tile, passes.to(torch.int32)) > 0
+    assert hit.any() and (~hit).any()
+    assert not (skip & hit).any(), int((skip & hit).sum())
+    assert skip.float().mean() > 0.5, skip.float().mean()
+
+
+def _semantics_scene():
+    """Sample 0, class 0: slot 0 invalid, slot 1 valid far outside the
+    grid, slot 2 a car on an anchor, slot 3 its duplicate (anchor ties),
+    slot 4 a 12 x 12 m square that holds many anchors whole (GT ties);
+    class 1 only an invalid slot. Sample 1: no valid GT."""
+    G = 16
+    gt_c = np.zeros((2, CFG.num_classes, G, 7), np.float32)
+    gv_c = np.zeros((2, CFG.num_classes, G), bool)
+    car = [0.5, 0.5, -1.0, 1.9, 4.7, 1.7, 0.0]
+    gt_c[0, 0, 0] = car
+    gt_c[0, 0, 1] = [CFG.x_max + 50, 0.0, -1.0, 1.9, 4.7, 1.7, 0.3]
+    gt_c[0, 0, 2] = car
+    gt_c[0, 0, 3] = car
+    gt_c[0, 0, 4] = [-10.0, -10.0, -1.0, 12.0, 12.0, 1.7, 0.0]
+    gv_c[0, 0, 1:5] = True
+    gt_c[0, 1, 0] = car
+    return torch.from_numpy(gt_c), torch.from_numpy(gv_c)
+
+
+def test_best_iou_plain_semantics():
+    """``windowed_best_iou_plain`` (the card's reference) on the five cases
+    the kernel must reproduce exactly: a class with no valid GT reads best
+    -1 / best_gt 0; an anchor whose valid GT all read 0 reads 0 / the first
+    valid slot; an invalid slot reads (-1, 0), a valid GT with no positive
+    IoU (here one far outside the grid) (0, 0); anchor ties go to the first
+    slot, GT ties to the lowest anchor. Held against the JAX kernel where
+    the two packages agree (positive IoUs, invalid slots); the far GT is
+    where they differ (JAX (-1, 0), module docstring)."""
+    gt_c, gv_c = _semantics_scene()
+    best, best_gt, gval, ganc = tassign.windowed_best_iou(gt_c, gv_c, TCFG)
+    assert best_gt.dtype == ganc.dtype == torch.int64
+    assert (best[1] == -1).all() and (best[0, 1:] == -1).all()
+    assert (best_gt[1] == 0).all() and (best_gt[0, 1:] == 0).all()
+    iou = tassign.class_iou_plain(gt_c[0], gv_c[0], TCFG)[0]   # (G, Ac)
+    none = (iou[1:5] <= 0).all(dim=0)
+    assert none.any()
+    assert (best[0, 0][none] == 0).all() and (best_gt[0, 0][none] == 1).all()
+    assert gval[0, 0, 0] == -1 and ganc[0, 0, 0] == 0
+    assert (gval[0, 0, 5:] == -1).all() and (ganc[0, 0, 5:] == 0).all()
+    assert gval[0, 0, 1] == 0.0 and ganc[0, 0, 1] == 0
+    car = iou[2] == iou[2].max()
+    assert iou[2].max() > 0.5 and torch.equal(iou[2], iou[3])
+    assert (best_gt[0, 0][car] == 2).all()
+    top = (iou[4] == iou[4].max()).nonzero()[:, 0]
+    assert iou[4].max() > 0 and len(top) > 1
+    assert ganc[0, 0, 4] == top.min() and gval[0, 0, 4] == iou[4].max()
+
+    j = jax_windowed_best_iou(jnp.asarray(gt_c.numpy()),
+                              jnp.asarray(gv_c.numpy()), CFG, 16,
+                              interpret=True)
+    jbest, jbest_gt, jgval, janc = (np.asarray(x) for x in j)
+    pos = best.numpy() > 0
+    np.testing.assert_allclose(best.numpy()[pos], jbest[pos], atol=IOU_TOL,
+                               rtol=0)
+    np.testing.assert_array_equal(best_gt.numpy()[0, 0][car.numpy()],
+                                  jbest_gt[0, 0][car.numpy()])
+    for g in (2, 4):
+        assert abs(float(gval[0, 0, g]) - jgval[0, 0, g]) <= IOU_TOL
+        assert janc[0, 0, g] == int(ganc[0, 0, g])
+    inval = ~gv_c.numpy()
+    assert (jgval[inval] == -1).all() and (janc[inval] == 0).all()
+    assert jgval[0, 0, 1] == -1 and janc[0, 0, 1] == 0
 
 
 def test_assign_wrapper_refuses_wrong_inputs():

@@ -20,14 +20,19 @@ not tied within 2e-5; the detector's packed output on the card against the
 same detector on the CPU at the tolerance of
 tests/test_detector_e2e.py::test_jitted_pipeline_matches_cpu_reference; two
 training steps on the card against the same steps on the CPU (loss rtol
-1e-3, equal positives). K3 and K4 also write every element of memory that
-held NaN / 0xFF before the call; with two cards, every kernel launches on
+1e-3, equal positives). K3, K4 and K11 also write every element of memory
+that held NaN / 0xFF before the call; K11 keeps exactly the runs of its
+pillar budget (tests/stream_budget_cases.py, and a full-config batch); K5
+is also held on a GT far from every anchor, GT on its tiles' edges and 64
+GT per class, with every case that no positive IoU decides exact; K5 and
+K11 launch once per call; with two cards, every kernel launches on
 ``cuda:1`` while ``cuda:0`` is current."""
 
 import numpy as np
 import pytest
 import torch
 
+import stream_budget_cases
 from tpu_pillars_torch import _build
 from tpu_pillars_torch import config as tconfig
 from tpu_pillars_torch.detector import Detector
@@ -638,14 +643,61 @@ def _gt_scene(rng, b, g, cfg=CFG, crowd=False):
     return gt, cls, valid
 
 
-@pytest.mark.parametrize("crowd", [False, True])
-def test_assign_kernel_matches_plain(dev, crowd):
-    gt, cls, valid = _gt_scene(np.random.default_rng(int(crowd)), 3, 40,
-                               crowd=crowd)
+def _gt_far(rng):
+    """A random scene plus, in every sample, a valid GT of class 0 500 m
+    beyond the grid: it passes no gate, so it reads (0, 0)."""
+    gt, cls, valid = _gt_scene(rng, 3, 40)
+    gt[:, 0] = [CFG.x_max + 500, 0.0, -1.0, 1.9, 4.7, 1.7, 0.4]
+    cls[:, 0], valid[:, 0] = 0, True
+    return gt, cls, valid
+
+
+def _gt_tile_edges(rng):
+    """GT of every class centred on the corners and edges of K5's tiles
+    (every 16 anchor columns of 2 yaws and 8 feature rows, 1 m apart at
+    the tiny config), jittered by 1 mm, at any yaw."""
+    stride = CFG.voxel_x * CFG.head_stride
+    xs = CFG.x_min + stride * np.arange(0, CFG.feature_w + 1, 16)
+    ys = CFG.y_min + stride * np.arange(0, CFG.feature_h + 1, 8)
+    pts = np.stack(np.meshgrid(xs, ys), -1).reshape(-1, 2)
+    n = len(pts)
+    gt, cls, valid = _gt_scene(rng, 2, n)
+    gt[:, :, :2] = pts + rng.uniform(-1e-3, 1e-3, (2, n, 2))
+    valid[:] = True
+    return gt, cls, valid
+
+
+def _gt_full_slots(rng):
+    """64 GT of class 0 per sample around a few spots: Gc = 64, the
+    kernel's limit (4 samples to a block)."""
+    gt, cls, valid = _gt_scene(rng, 2, 64, crowd=True)
+    gt[:, 32:, :2] += 6.0
+    return gt, cls, valid
+
+
+ASSIGN_CASES = {
+    "random": (lambda rng: _gt_scene(rng, 3, 40), 16),
+    "crowd": (lambda rng: _gt_scene(rng, 3, 40, crowd=True), 16),
+    "far": (_gt_far, 16),
+    "tile_edges": (_gt_tile_edges, 16),
+    "gc64": (_gt_full_slots, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ASSIGN_CASES))
+def test_assign_kernel_matches_plain(dev, case):
+    """K5, one launch a call, against its plain version: IoUs within 2e-5,
+    the best GT equal wherever the best is positive and clear, each GT's
+    anchor the plain one or one tied within 2e-5, and every case where no
+    positive IoU decides exact (best -1 / 0 and its slot, a GT's (-1, 0)
+    or (0, 0))."""
+    make, gc = ASSIGN_CASES[case]
+    gt, cls, valid = make(np.random.default_rng(sorted(ASSIGN_CASES).index(
+        case)))
     gt_c, gv_c = group_gt_by_class(torch.from_numpy(gt).to(dev),
                                    torch.from_numpy(cls).to(dev),
                                    torch.from_numpy(valid).to(dev),
-                                   CFG.num_classes, 16)
+                                   CFG.num_classes, gc)
     before = _build.LAUNCHES["assign"]
     got = assign.windowed_best_iou(gt_c, gv_c, CFG)
     assert _build.LAUNCHES["assign"] == before + 1
@@ -653,6 +705,7 @@ def test_assign_kernel_matches_plain(dev, crowd):
     torch.cuda.synchronize()
     best, best_gt, gval, ganc = (x.cpu() for x in got)
     wbest, wbest_gt, wgval, wganc = (x.cpu() for x in want)
+    assert best_gt.dtype == ganc.dtype == torch.int64
     torch.testing.assert_close(best, wbest, atol=2e-5, rtol=0)
     torch.testing.assert_close(gval, wgval, atol=2e-5, rtol=0)
     iou = torch.stack([assign.class_iou_plain(gt_c[b], gv_c[b], CFG).cpu()
@@ -664,7 +717,15 @@ def test_assign_kernel_matches_plain(dev, crowd):
     picked = torch.gather(iou, 3, ganc[..., None])[..., 0]
     claim = gv_c.cpu() & (wgval > 0)
     assert ((picked - wgval).abs()[claim] <= 2e-5).all()
-    assert (ganc[~gv_c.cpu()] == 0).all() and (gval[~gv_c.cpu()] == -1).all()
+    # no positive IoU: exact
+    zero = wbest <= 0
+    assert torch.equal(best[zero], wbest[zero])
+    assert torch.equal(best_gt[zero], wbest_gt[zero])
+    assert (ganc[~claim] == 0).all() and torch.equal(gval[~claim],
+                                                     wgval[~claim])
+    assert (gval[~gv_c.cpu()] == -1).all()
+    if case == "far":
+        assert (gval[:, 0, 0] == 0).all() and gv_c[:, 0, 0].all()
 
 
 def test_train_steps_on_card_match_cpu(dev):
@@ -703,6 +764,8 @@ def test_stream_kernel_matches_plain_and_fused(dev, case):
     w = torch.from_numpy((rng.normal(size=(D, C)) * 0.3).astype(np.float32))
     b = torch.from_numpy(rng.normal(size=(C,)).astype(np.float32))
     w_eff, w_dec = fused_pfn.fold_decoration(w.to(dev), b.to(dev), cfg)
+    _poison((gid.shape[0], cfg.grid_h, cfg.grid_w, C), torch.float32,
+            float("nan"), dev)
     before = _build.LAUNCHES["stream_pfn"]
     got = stream_pfn.stream_canvas_from_sorted(gid, pts, w_eff, w_dec, cfg)
     assert _build.LAUNCHES["stream_pfn"] == before + 1
@@ -721,6 +784,73 @@ def test_stream_kernel_matches_plain_and_fused(dev, case):
     torch.testing.assert_close(got, fused, atol=1e-4, rtol=1e-5)
     if case == "empty":
         assert not got.any()
+
+
+def _stream_budget_inputs(dev):
+    """tests/stream_budget_cases.py's batch at the tiny config with N = 32
+    (fewer than P runs, exactly P, a cut inside a tile, an empty sample, a
+    run at cell H*W - 1, runs of exactly 32 and of 45 points)."""
+    cfg = tconfig.tiny_config(max_points_per_pillar=32)
+    gid, runs = stream_budget_cases.budget_batch(cfg)
+    pts, w_eff, w_dec = stream_budget_cases.budget_inputs(cfg, gid.shape)
+    return cfg, runs, [torch.from_numpy(x).to(dev)
+                       for x in (gid, pts, w_eff, w_dec)]
+
+
+def _stream_full_inputs(dev):
+    """Two uniform sweeps of 100,000 points at the full config: more runs
+    than the budget of 12,000, 64 channels, sorted and centred."""
+    cfg = tconfig.PillarsConfig()
+    pts, ns = _cloud(np.random.default_rng(5), [100_000, 100_000], cfg=cfg)
+    gid, p = sort_points_by_pillar(torch.from_numpy(pts).to(dev),
+                                   torch.from_numpy(ns).to(dev), cfg)
+    rng = np.random.default_rng(6)
+    D, C = cfg.num_decorated_features, cfg.pfn_channels
+    w = torch.from_numpy((rng.normal(size=(D, C)) * 0.3).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(C,)).astype(np.float32))
+    w_eff, w_dec = fused_pfn.fold_decoration(w.to(dev), b.to(dev), cfg)
+    return cfg, None, [gid, fused_pfn.center_points(gid, p, cfg), w_eff,
+                       w_dec]
+
+
+@pytest.mark.parametrize("case", ["budget_cases", "full_config"])
+def test_stream_kernel_budget_into_poisoned_memory(dev, case):
+    """K11, one launch a call, into memory that held NaN: within atol /
+    rtol 1e-5 of its plain version with the occupancy equal cell for cell;
+    on the budget cases the occupied cells are exactly the runs at or
+    below the P-th run's id, and the plain cutoff is the kernel's rule."""
+    make = _stream_budget_inputs if case == "budget_cases" else \
+        _stream_full_inputs
+    cfg, runs, (gid, pts, w_eff, w_dec) = make(dev)
+    B, HW, C = gid.shape[0], cfg.grid_h * cfg.grid_w, w_eff.shape[1]
+    _poison((B, cfg.grid_h, cfg.grid_w, C), torch.float32, float("nan"), dev)
+    before = _build.LAUNCHES["stream_pfn"]
+    got = stream_pfn.stream_canvas_from_sorted(gid, pts, w_eff, w_dec, cfg)
+    assert _build.LAUNCHES["stream_pfn"] == before + 1
+    want = stream_pfn.stream_canvas_from_sorted_plain(gid, pts, w_eff,
+                                                      w_dec, cfg)
+    cut = stream_pfn.stream_budget_cutoff_plain(gid, cfg).cpu()
+    torch.cuda.synchronize()
+    assert not got.isnan().any()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    occ = got.ne(0).any(-1).reshape(B, HW).cpu()
+    assert torch.equal(occ, want.ne(0).any(-1).reshape(B, HW).cpu())
+    cells = torch.arange(HW)
+    assert not (occ & (cells[None] > cut[:, None])).any()
+    if runs is None:     # the budget cut: exactly P runs at or below it
+        g = gid.cpu()
+        starts = (g < HW) & torch.cat([torch.ones(B, 1, dtype=torch.bool),
+                                       g[:, 1:] != g[:, :-1]], 1)
+        assert (starts.sum(1) > cfg.max_pillars).all()
+        assert ((starts & (g <= cut[:, None])).sum(1)
+                == cfg.max_pillars).all()
+        return
+    for s, run_cells in enumerate(runs):
+        want_cut = stream_budget_cases.expected_cutoff(run_cells, cfg)
+        assert int(cut[s]) == want_cut
+        expect = torch.zeros(HW, dtype=torch.bool)
+        expect[torch.from_numpy(run_cells[run_cells <= want_cut])] = True
+        assert torch.equal(occ[s], expect), stream_budget_cases.CASES[s]
 
 
 @pytest.mark.parametrize("n,m,bi,bj", [(45, 19, 32, 16), (300, 200, 256, 64),

@@ -8,7 +8,8 @@
   library that records where each entry point was called: any device but
   the CPU takes the kernel's path, so the wrappers run to their launches
   without a card. ``tests/test_torch_cuda.py`` launches on ``cuda:1``
-  where a machine has two cards.
+  where a machine has two cards. K5 and K11, one launch each and no other
+  torch op than their allocations, return their documented outputs there.
 * K3's precondition: the ids that each caller of the BEV scatter passes
   (the fused and the classic serving front end, a training step) satisfy
   ``where(mask, pid, H*W)`` ascending, valid ids unique and in [0, H*W),
@@ -105,6 +106,7 @@ def _m(shape, dtype=torch.float32):
 
 
 B, P, C, HW = 2, 16, 8, CFG.grid_h * CFG.grid_w
+A_C = CFG.feature_h * CFG.feature_w * len(CFG.anchor_yaws)  # K5's anchors
 
 # each kernel's wrapper on meta inputs of the shapes it takes
 CALLS = {
@@ -161,6 +163,28 @@ def test_wrapper_launches_under_its_inputs_device(card, kernel):
     assert {k: v for k, v in after.items() if k != kernel} == \
         {k: v for k, v in before.items() if k != kernel}
     assert not card.current
+
+
+# the outputs each one-launch wrapper documents: (shape, dtype) per output
+OUTPUTS = {
+    "assign": [((B, CFG.num_classes, A_C), torch.float32),
+               ((B, CFG.num_classes, A_C), torch.int64),
+               ((B, CFG.num_classes, 4), torch.float32),
+               ((B, CFG.num_classes, 4), torch.int64)],
+    "stream_pfn": [((B, CFG.grid_h, CFG.grid_w, C), torch.float32)],
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(OUTPUTS))
+def test_one_launch_wrappers_return_their_outputs(card, kernel):
+    """K5 and K11 make one guarded call and run no other torch op than
+    their allocations, so on ``meta`` they return their documented outputs
+    (K5's best_gt and gt_best_anchor int64)."""
+    out = CALLS[kernel]()
+    out = out if isinstance(out, tuple) else (out,)
+    assert len(card.calls) == 1
+    assert [(tuple(t.shape), t.dtype) for t in out] == OUTPUTS[kernel]
+    assert all(t.device == META for t in out)
 
 
 def test_launch_refuses_tensors_on_two_devices(card):

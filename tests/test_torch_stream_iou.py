@@ -8,6 +8,11 @@ dense ``rotated_nms`` against the JAX package on the CPU.
   ``Detector.canvas``; on the trained checkpoint at the full config, the
   stream canvas through ``wire`` and ``postprocess`` reproduces the JAX
   golden detections of a held-out scene.
+* K11's pillar budget as a cutoff (``stream_budget_cutoff_plain``, the
+  rule of the kernel's budget pass) against the sidecar on the cases of
+  tests/stream_budget_cases.py: fewer than P runs, exactly P, a cut inside
+  a 64-cell tile, an empty sample, a run at cell H*W - 1, runs of N and
+  more than N points; the plain canvas zeroes exactly the cells past it.
 * K7: the plain version against ``rotated_iou_bev_tiled`` (interpret mode)
   with the same blocks, atol 1e-5 (both tile alike; the rest is f32
   rounding of the same formula); the self-IoU diagonal at 1 (atol 1e-4)
@@ -30,6 +35,7 @@ from tpu_pillars.ops.iou import rotated_iou_bev_chunked as jax_iou_chunked
 from tpu_pillars.ops.iou_pallas import rotated_iou_bev_tiled as jax_tiled
 from tpu_pillars.ops.nms import rotated_nms as jax_rotated_nms
 from tpu_pillars.ops.stream_pfn import points_to_canvas_stream as jax_stream
+import stream_budget_cases
 from torch_port_util import assert_packed_close, random_variables
 from tpu_pillars_torch import config as tconfig
 from tpu_pillars_torch.detector import Detector, pack_detections
@@ -114,6 +120,37 @@ def test_stream_sidecar_start_rows():
                         [HW] * 9], dtype=torch.int32)
     got = stream_pfn.stream_sidecar(gid, cfg)
     assert got.tolist() == [[0, 2, 3], [0, -1, -1], [-1, -1, -1]]
+
+
+@pytest.mark.parametrize("case", stream_budget_cases.CASES)
+def test_stream_budget_cutoff_plain(case):
+    """The budget as a cutoff: ``stream_budget_cutoff_plain`` gives the id
+    of the P-th run (H*W - 1 with fewer runs); the sidecar's first P runs
+    are exactly the runs at or below it; the plain canvas occupies exactly
+    those cells and zeroes every cell past it."""
+    cfg = tconfig.tiny_config(max_points_per_pillar=32)
+    HW = cfg.grid_h * cfg.grid_w
+    gid_np, runs = stream_budget_cases.budget_batch(cfg)
+    s = stream_budget_cases.CASES.index(case)
+    cells = runs[s]
+    want = stream_budget_cases.expected_cutoff(cells, cfg)
+    gid = torch.from_numpy(gid_np)
+    cut = stream_pfn.stream_budget_cutoff_plain(gid, cfg)
+    assert cut.dtype == torch.int32 and cut.shape == (len(runs),)
+    assert int(cut[s]) == want
+    start = stream_pfn.stream_sidecar(gid, cfg)[s]
+    kept = cells[cells <= want]
+    np.testing.assert_array_equal(gid_np[s][start[start >= 0].numpy()], kept)
+    assert len(kept) == min(len(cells), cfg.max_pillars)
+    pts, w_eff, w_dec = (torch.from_numpy(x) for x in
+                         stream_budget_cases.budget_inputs(cfg, gid.shape))
+    canvas = stream_pfn.stream_canvas_from_sorted_plain(gid, pts, w_eff,
+                                                        w_dec, cfg)
+    occ = canvas[s].reshape(HW, -1).ne(0).any(-1).numpy()
+    expect = np.zeros(HW, bool)
+    expect[kept] = True
+    np.testing.assert_array_equal(occ, expect)
+    assert not occ[want + 1:].any()
 
 
 def test_stream_canvas_is_the_fused_canvas():

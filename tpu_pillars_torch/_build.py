@@ -146,13 +146,25 @@ def launch(kernel: str, symbol: str, sig: str, *args,
     ``LAUNCHES[kernel]`` unless ``count`` is false (a sidecar)."""
     import torch
 
-    devices = {a.device for a in args if isinstance(a, torch.Tensor)}
-    if len(devices) != 1:
+    # one pass over the arguments: this runs on every launch, and the host
+    # time of a wrapper is what a short kernel's caller waits on
+    device = None
+    ptrs = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            d = a.device
+            if device is None:
+                device = d
+            elif d != device:
+                device = False
+            ptrs.append(a.data_ptr())
+        else:
+            ptrs.append(a)
+    if not device:
+        devices = {a.device for a in args if isinstance(a, torch.Tensor)}
         raise ValueError(f"{symbol}: the tensors lie on "
                          f"{sorted(map(str, devices))}, not on one device")
-    (device,) = devices
     fn = function(kernel, symbol, sig)
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(device):
         err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

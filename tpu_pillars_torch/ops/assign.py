@@ -3,11 +3,18 @@
 Port of ``tpu_pillars/ops/assign_pallas.py``. :func:`windowed_best_iou`
 computes, for each sample and class, the best own-class rotated BEV IoU of
 every anchor (and which GT attains it) and each GT's best anchor. On a CUDA
-tensor it launches ``csrc/assign.cu`` (one thread per anchor, an exact
-per-anchor circumradius gate in front of ``ops/iou.py``'s arithmetic); on a
-CPU tensor it runs :func:`windowed_best_iou_plain`, the dense per-class
-(Gc, Ac) IoU with the same gate and tie rules. The kernel is built without
-fused multiply-adds, so the two agree to rounding.
+tensor it makes one launch of ``csrc/assign.cu`` and runs no other torch op
+than the allocation of its outputs: the kernel computes the GT payload
+itself, reads each tile of the static anchor planes once for every sample,
+skips a GT for a whole tile of ``TILE_ROWS`` x ``TILE_LANES`` anchors when
+the tile's static circle (:func:`tile_circles`, :func:`tile_gate_plain`)
+proves that no anchor of the tile can pass the per-anchor circumradius
+gate, and finds each GT's best anchor with one block that walks only the
+tiles its gate lets through. On a CPU tensor it runs
+:func:`windowed_best_iou_plain`, the dense per-class (Gc, Ac) IoU with the
+same per-anchor gate and tie rules. The kernel is built without fused
+multiply-adds, so the two agree to rounding. What bounds the kernel is the
+bytes of its outputs; the design notes are in the ``.cu`` header.
 
 :func:`make_windowed_assigner` wraps it with the JAX package's epilogue in
 torch ops: thresholds, force-match, the single class-block -> flat unblock,
@@ -15,9 +22,12 @@ the GT pick (a ``gather``, exact as the JAX one-hot matmul at HIGHEST is)
 and the residual encoding, feature-major.
 
 Anchors far from every valid GT: the TPU kernel leaves best = -1 where its
-block-level gate skipped every GT; here every valid GT is tested (gated
-pairs read IoU 0), as in the dense assigner. Both values mean "negative,
-no match" downstream.
+block-level gate skipped every GT; here an anchor of a class with a valid
+GT reads 0 and the first valid slot, as in the dense assigner (a gated
+pair reads IoU 0), whether or not its tile was skipped. Both values mean
+"negative, no match" downstream. A valid GT with no positive IoU reads
+(0.0, anchor 0) here; the TPU kernel gives it the first anchor of the
+first block its gate let through, or (-1, 0) when none did.
 """
 
 from __future__ import annotations
@@ -34,7 +44,14 @@ from tpu_pillars_torch.ops.anchors import make_anchors
 from tpu_pillars_torch.ops.iou import _EPS, _half_edge_integral, corners_bev
 from tpu_pillars_torch.ops.target_assigner import Targets, group_gt_by_class
 
-MAX_GT_PER_CLASS = 64   # the kernel's shared-memory GT slots
+MAX_GT_PER_CLASS = 64   # the kernel's GT slots (a 64-bit slot mask)
+# a tile of csrc/assign.cu: TILE_ROWS feature rows (kRows) by TILE_LANES
+# consecutive anchors of a row's Wf * Y, one thread per anchor
+TILE_ROWS, TILE_LANES = 8, 32
+# the tile gate's slack (kGateRel, kGateAbs in csrc/assign.cu): relative to
+# the summed radii, plus metres; far above the f32 rounding of either gate
+TILE_GATE_REL = 1e-4
+TILE_GATE_ABS = 1e-3
 
 
 @functools.lru_cache(maxsize=8)
@@ -68,9 +85,84 @@ def _device_planes(config: PillarsConfig, device) -> torch.Tensor:
     return torch.from_numpy(np.array(anchor_planes(config))).to(device)
 
 
+@functools.lru_cache(maxsize=8)
+def tile_circles(config: PillarsConfig) -> np.ndarray:
+    """Static (C, T, 4) f32 circle of each class's anchor tiles: centre x,
+    y, a radius R, 0. A tile is ``TILE_ROWS`` feature rows by
+    ``TILE_LANES`` consecutive anchors of a row's Wf * Y (class-block
+    order), T = ceil(Hf / TILE_ROWS) * ceil(Wf * Y / TILE_LANES) tiles in
+    row-major order. Every anchor of the tile has its f32 centre
+    (``anchor_planes`` rows 8, 9) within R minus its own circumradius (row
+    11) of the f32 centre: computed in float64 from the f32 planes and
+    rounded up, so R holds in exact arithmetic."""
+    planes = anchor_planes(config).astype(np.float64)
+    C = planes.shape[0]
+    Hf, L = config.feature_h, config.feature_w * len(config.anchor_yaws)
+    TR, TC = -(-Hf // TILE_ROWS), -(-L // TILE_LANES)
+    pad = ((0, 0), (0, TR * TILE_ROWS - Hf), (0, TC * TILE_LANES - L))
+
+    def tiles(k):           # (C, TR * TC, TILE_ROWS * TILE_LANES)
+        v = np.pad(planes[:, k].reshape(C, Hf, L), pad, mode="edge")
+        return (v.reshape(C, TR, TILE_ROWS, TC, TILE_LANES)
+                .transpose(0, 1, 3, 2, 4).reshape(C, TR * TC, -1))
+
+    x, y, r = tiles(8), tiles(9), tiles(11)
+    cx = (0.5 * (x.min(axis=2) + x.max(axis=2))).astype(np.float32)
+    cy = (0.5 * (y.min(axis=2) + y.max(axis=2))).astype(np.float32)
+    reach = np.sqrt((x - cx[..., None].astype(np.float64)) ** 2
+                    + (y - cy[..., None].astype(np.float64)) ** 2) + r
+    radius = reach.max(axis=2)
+    r32 = radius.astype(np.float32)
+    r32 = np.where(r32.astype(np.float64) < radius,
+                   np.nextafter(r32, np.float32(np.inf)), r32)
+    out = np.stack([cx, cy, r32, np.zeros_like(r32)], axis=-1)
+    out.setflags(write=False)
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _device_circles(config: PillarsConfig, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(tile_circles(config))).to(device)
+
+
+_KERNEL_CONSTS: dict = {}
+
+
+def _kernel_consts(config: PillarsConfig, device):
+    """(planes, circles, Hf, Wf * Y) of the kernel on ``device``, looked up
+    by the config's identity: hashing a config costs the host several
+    microseconds, and the wrapper's host time is what its caller waits on.
+    An entry holds its config, so the id is not reused while it lives."""
+    key = (id(config), device)
+    hit = _KERNEL_CONSTS.get(key)
+    if hit is None:
+        if len(_KERNEL_CONSTS) >= 16:
+            _KERNEL_CONSTS.clear()
+        hit = (config, _device_planes(config, device),
+               _device_circles(config, device), config.feature_h,
+               config.feature_w * len(config.anchor_yaws))
+        _KERNEL_CONSTS[key] = hit
+    return hit[1:]
+
+
+def tile_gate_plain(gt_c, config: PillarsConfig):
+    """The kernel's block-level gate in its f32 order: gt_c (B, C, Gc, 7) ->
+    (B, C, Gc, T) bool, true where the tile circle proves that the GT
+    passes the per-anchor gate with no anchor of the tile."""
+    circ = _device_circles(config, gt_c.device)[None, :, None]  # 1 C 1 T 4
+    w, l = gt_c[..., 3:4], gt_c[..., 4:5]
+    gr = 0.5 * torch.sqrt(w * w + l * l)
+    dx = gt_c[..., 0:1] - circ[..., 0]
+    dy = gt_c[..., 1:2] - circ[..., 1]
+    lim = (circ[..., 2] + gr) * (1.0 + TILE_GATE_REL) + TILE_GATE_ABS
+    return dx * dx + dy * dy > lim * lim
+
+
 def gt_payload(gt_c, gv_c):
     """(B, C, Gc, 7) class-grouped GT + (B, C, Gc) validity -> (B, C, Gc,
-    16): corner xs, corner ys, centre, BEV area, circumradius, valid."""
+    16): corner xs, corner ys, centre, BEV area, circumradius, valid. The
+    plain version's GT rows; the kernel computes the first 12 columns
+    itself with the same operations."""
     corners = corners_bev(gt_c)                              # (..., 4, 2)
     area = gt_c[..., 3] * gt_c[..., 4]
     circ = 0.5 * torch.sqrt(gt_c[..., 3] ** 2 + gt_c[..., 4] ** 2)
@@ -98,32 +190,34 @@ def windowed_best_iou(gt_c, gv_c, config: PillarsConfig):
     best_iou (B, C, Ac) f32, best_gt (B, C, Ac) int64,
     gt_best_iou (B, C, Gc) f32, gt_best_anchor (B, C, Gc) int64.
 
-    Anchor order is class-block (``anchor_planes``). A GT's best anchor is
-    the lowest index among ties; an invalid GT reads (-1, 0)."""
+    Anchor order is class-block (``anchor_planes``). An anchor of a class
+    with no valid GT reads (-1, 0), one whose valid GT all read 0 reads
+    (0, the first valid slot); ties go to the first slot. A GT's best
+    anchor is the lowest index among ties; an invalid slot reads (-1, 0),
+    a valid GT with no positive IoU (0, 0)."""
     _check(gt_c, gv_c)
     if gt_c.device.type == "cpu":
         return windowed_best_iou_plain(gt_c, gv_c, config)
     B, C, Gc, _ = gt_c.shape
-    if C != config.num_classes or Gc > MAX_GT_PER_CLASS:
+    dev = gt_c.device
+    planes, circles, Hf, L = _kernel_consts(config, dev)
+    if C != planes.shape[0] or not 1 <= Gc <= MAX_GT_PER_CLASS:
         raise ValueError(f"windowed_best_iou: {C} classes (config has "
-                         f"{config.num_classes}), {Gc} GT per class (kernel "
-                         f"takes <= {MAX_GT_PER_CLASS})")
-    planes = _device_planes(config, gt_c.device)
-    Ac = planes.shape[2]
-    pay = gt_payload(gt_c, gv_c).contiguous()
-    best = torch.empty((B, C, Ac), dtype=torch.float32, device=gt_c.device)
-    best_gt = torch.empty((B, C, Ac), dtype=torch.int32, device=gt_c.device)
-    key = torch.zeros((B, C, Gc), dtype=torch.int64, device=gt_c.device)
-    _build.launch("assign", "assign_best_iou", "pppppiiii", pay, planes, best,
-                  best_gt, key, B, C, Gc, Ac)
-    # key = (f32 bits | 1 << 31) << 32 | (2^32 - 1 - anchor); 0 = no valid GT
-    hi = (key >> 32) & 0xFFFFFFFF
-    lo = key & 0xFFFFFFFF
-    val = (hi & 0x7FFFFFFF).to(torch.int32).view(torch.float32)
-    empty = key == 0
-    gt_val = torch.where(empty, -1.0, val)
-    gt_anchor = torch.where(empty, 0, 0xFFFFFFFF - lo)
-    return best, best_gt.long(), gt_val, gt_anchor
+                         f"{planes.shape[0]}), {Gc} GT per class (kernel "
+                         f"takes 1 to {MAX_GT_PER_CLASS})")
+    Ac, T = planes.shape[2], circles.shape[1]
+    best = torch.empty((B, C, Ac), dtype=torch.float32, device=dev)
+    best_gt = torch.empty((B, C, Ac), dtype=torch.int64, device=dev)
+    gt_val = torch.empty((B, C, Gc), dtype=torch.float32, device=dev)
+    gt_anchor = torch.empty((B, C, Gc), dtype=torch.int64, device=dev)
+    if gt_c.stride(3) != 1:
+        gt_c = gt_c.contiguous()
+    # the kernel reads both through their strides: the class-grouped GT
+    # are a slice of a larger buffer, and a copy would cost a launch
+    _build.launch("assign", "assign_best_iou", "ppppppppiiiiiiiiiiii", gt_c,
+                  gv_c, planes, circles, best, best_gt, gt_val, gt_anchor, B,
+                  C, Gc, Hf, L, T, *gt_c.stride()[:3], *gv_c.stride())
+    return best, best_gt, gt_val, gt_anchor
 
 
 def class_iou_plain(gt_c, gv_c, config: PillarsConfig):

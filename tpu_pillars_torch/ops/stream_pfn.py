@@ -1,5 +1,5 @@
 """K11 streaming serving front end: sorted points -> BEV canvas in one
-kernel, with no pillar table. Port of ``tpu_pillars/ops/stream_pfn.py``.
+pass, with no pillar table. Port of ``tpu_pillars/ops/stream_pfn.py``.
 
 After the stable sort by pillar id, each pillar's points are one CONTIGUOUS
 run, and only its first N (``max_points_per_pillar``) points are kept, so
@@ -12,19 +12,26 @@ run instead of per table row:
 at each of the first P runs of a sample (the pillar budget, P =
 ``max_pillars``), zeros elsewhere, with r' the cell-centred point and t the
 decoration bias from the run's kept-point sums (fold_decoration's w_dec).
+Ids ascend, so the budget is a cutoff: a run is kept when its id is at
+most the id of the sample's P-th run (:func:`stream_budget_cutoff_plain`).
 
-The sidecar (:func:`stream_sidecar`) is stock torch, as the JAX package
-leaves it to XLA: run starts ``gid != gid[j-1]``, their running count, and
-the row of the first point of each of the first P runs. On a CUDA tensor
-:func:`stream_canvas_from_sorted` then launches ``csrc/stream_pfn.cu`` (one
-warp per run; the TPU kernel's ring window, bf16 splits, one-hot matmuls
-and prefix-doubling ladder are placement machinery the card does not need:
-each cell has one source, so a direct store into a zeroed canvas is
-exact); on a CPU tensor it runs :func:`stream_canvas_from_sorted_plain`.
-Both take the coordinate sums in slot order (the JAX ladder sums in a tree,
-so the two packages agree to rounding, as the JAX stream path agrees with
-its fused path). Pillar ids stay int32 throughout (the TPU kernel carried
-them as f32, exact below 2^24).
+On a CUDA tensor :func:`stream_canvas_from_sorted` makes one launch of
+``csrc/stream_pfn.cu`` into ``torch.empty`` and runs no other torch op:
+its C entry finds each sample's cutoff and each tile's first row in two
+small passes over the ids, then writes every canvas cell once, in canvas
+order, in tiles of ``STREAM_TILE_CELLS`` cells (K3's design), each
+thread computing the elements it stores. What bounds it is the canvas
+write; the design notes are in the ``.cu`` header. The TPU kernel's ring
+window, bf16 splits, one-hot matmuls and prefix-doubling ladder are
+placement machinery the card does not need. On a CPU tensor it runs
+:func:`stream_canvas_from_sorted_plain`, which takes the budget from the
+sidecar (:func:`stream_sidecar`, stock torch, as the JAX package leaves it
+to XLA: run starts ``gid != gid[j-1]``, their running count, and the row of
+the first point of each of the first P runs). Both take the coordinate sums
+in slot order (the JAX ladder sums in a tree, so the two packages agree to
+rounding, as the JAX stream path agrees with its fused path). Pillar ids
+stay int32 throughout (the TPU kernel carried them as f32, exact below
+2^24).
 """
 
 from __future__ import annotations
@@ -38,7 +45,9 @@ from tpu_pillars_torch.ops.fused_pfn import center_points, fold_decoration
 from tpu_pillars_torch.ops.voxelize import sort_points_by_pillar
 
 MAX_F = 8            # the kernel keeps a point's features in registers
-MAX_N = 32           # one lane per kept slot
+MAX_N = 32           # kept points per run the kernel takes
+STREAM_TILE_CELLS = 64    # canvas cells per block (kTileCells in the .cu)
+STREAM_CHUNK_ROWS = 1024  # ids per run-start count (kChunk in the .cu)
 
 
 def stream_sidecar(gid_sorted, config: PillarsConfig):
@@ -56,6 +65,21 @@ def stream_sidecar(gid_sorted, config: PillarsConfig):
     want = torch.arange(1, P + 1, device=gid.device).expand(B, P)
     row = torch.searchsorted(runs, want.contiguous())
     return torch.where(row < M, row, -1).to(torch.int32)
+
+
+def stream_budget_cutoff_plain(gid_sorted, config: PillarsConfig):
+    """(B, M) ascending int32 pillar ids -> (B,) int32 cutoff: the id of the
+    sample's P-th run (P = ``max_pillars``), or H*W - 1 when it has fewer
+    runs. A run is among the first P exactly when its id is at most the
+    cutoff; the kernel's budget pass computes the same value."""
+    HW = config.grid_h * config.grid_w
+    gid = gid_sorted.to(torch.int32)
+    B, M = gid.shape
+    if M == 0:
+        return torch.full((B,), HW - 1, dtype=torch.int32, device=gid.device)
+    last = stream_sidecar(gid, config)[:, -1]
+    at = torch.gather(gid, 1, last.clamp(min=0).long()[:, None])[:, 0]
+    return torch.where(last >= 0, at, HW - 1).to(torch.int32)
 
 
 def _check(gid_sorted, pts_centered, w_eff, w_dec, config: PillarsConfig):
@@ -95,16 +119,18 @@ def stream_canvas_from_sorted(gid_sorted, pts_centered, w_eff, w_dec,
     H, W = config.grid_h, config.grid_w
     B, M = gid_sorted.shape
     F, C = w_eff.shape
-    P = config.max_pillars
-    start_row = stream_sidecar(gid_sorted, config)
-    gid = gid_sorted.contiguous()
-    pts = pts_centered.contiguous()
-    w_eff, w_dec = w_eff.contiguous(), w_dec.contiguous()
-    canvas = torch.zeros((B, H, W, C), dtype=torch.float32, device=dev)
-    _build.launch("stream_pfn", "stream_pfn", "ppppppiiiiiiiiffff", gid, pts,
-                  start_row, w_eff, w_dec, canvas, B, M, P,
-                  config.max_points_per_pillar, F, C, W, H * W, config.x_min,
-                  config.y_min, config.voxel_x, config.voxel_y)
+    n_chunk = -(-M // STREAM_CHUNK_ROWS)
+    n_tiles = -(-(H * W) // STREAM_TILE_CELLS)
+    canvas = torch.empty((B, H, W, C), dtype=torch.float32, device=dev)
+    # per sample: run-start counts per chunk, each tile's first row, cutoff
+    scratch = torch.empty((B * (n_chunk + n_tiles + 2),), dtype=torch.int32,
+                          device=dev)
+    _build.launch("stream_pfn", "stream_pfn", "ppppppiiiiiiiiffff",
+                  gid_sorted.contiguous(), pts_centered.contiguous(),
+                  w_eff.contiguous(), w_dec.contiguous(), canvas, scratch, B,
+                  M, config.max_pillars, config.max_points_per_pillar, F, C,
+                  W, H * W, config.x_min, config.y_min, config.voxel_x,
+                  config.voxel_y)
     return canvas
 
 
