@@ -5,7 +5,9 @@ JAX package, so it also runs on a machine that has neither:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
-K1 emit and K3 scatter are held bit for bit, K3's backward too; K2 fused
+K1 emit and K3 scatter are held bit for bit, K3's backward too (K1 also on
+the run cases of tests/emit_run_cases.py and a full-config batch with more
+runs than the pillar budget, into memory that held NaN); K2 fused
 PFN and K6 PFN to atol 1e-5, rtol 1e-5 (both sides round the same f32
 operations in the same order; the kernels are built without fused
 multiply-adds); K10 radix sort, K8 binning and K9 block gather bit for
@@ -24,14 +26,18 @@ training steps on the card against the same steps on the CPU (loss rtol
 that held NaN / 0xFF before the call; K11 keeps exactly the runs of its
 pillar budget (tests/stream_budget_cases.py, and a full-config batch); K5
 is also held on a GT far from every anchor, GT on its tiles' edges and 64
-GT per class, with every case that no positive IoU decides exact; K5 and
-K11 launch once per call; with two cards, every kernel launches on
+GT per class, with every case that no positive IoU decides exact; K6 is
+also held at C = 96 and 256, D = 1, N = 16 and 40, a ragged pillar count,
+more pillars than the grid has warps and a pillar whose only valid slot is
+the last, into memory that held NaN; K1, K5, K6 and K11 launch once per
+call; with two cards, every kernel launches on
 ``cuda:1`` while ``cuda:0`` is current."""
 
 import numpy as np
 import pytest
 import torch
 
+import emit_run_cases
 import stream_budget_cases
 from tpu_pillars_torch import _build
 from tpu_pillars_torch import config as tconfig
@@ -98,20 +104,64 @@ def _sorted_centered(case, dev):
     return cfg, gid, fused_pfn.center_points(gid, p, cfg)
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+def _poison_all(specs, dev):
+    """``_poison`` for the outputs and scratch of one wrapper call, given as
+    (shape, dtype, value) in the order the wrapper allocates them: all
+    filled at once, then all freed, so that the call's allocations get the
+    same blocks back. Returns their addresses."""
+    junk = [torch.full(shape, value, dtype=dtype, device=dev)
+            for shape, dtype, value in specs]
+    ptrs = [t.data_ptr() for t in junk]
+    del junk
+    return ptrs
+
+
+def _emit_inputs(case, dev):
+    """(cfg, gid, pts) on the card: a CASES cloud sorted and centred, the
+    run cases (F = 4 or 5) at the tiny config, or two uniform sweeps of
+    100,000 points at the full config (more runs than the budget)."""
+    if case in CASES:
+        return _sorted_centered(case, dev)
+    if case.startswith("run_cases"):
+        gid, pts, _ = emit_run_cases.run_batch(
+            CFG, f=5 if case.endswith("f5") else 4,
+            chunk=emit.EMIT_CHUNK_ROWS)
+        return CFG, torch.from_numpy(gid).to(dev), torch.from_numpy(pts).to(
+            dev)
+    cfg, _, (gid, pts, _, _) = _stream_full_inputs(dev)
+    return cfg, gid, pts
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + [
+    "run_cases", "run_cases_f5", "full_config"])
 def test_emit_kernel_bit_equal(dev, case):
-    cfg, gid, pts = _sorted_centered(case, dev)
-    args = (gid, pts, cfg.max_points_per_pillar, cfg.max_pillars,
-            cfg.grid_h * cfg.grid_w)
+    """K1, one launch a call, into memory that held NaN (table and meta;
+    the scratch held 7s): bit-equal to its plain version and to the CPU
+    path."""
+    cfg, gid, pts = _emit_inputs(case, dev)
+    B, M, F = pts.shape
+    N, P, HW = cfg.max_points_per_pillar, cfg.max_pillars, \
+        cfg.grid_h * cfg.grid_w
+    args = (gid, pts, N, P, HW)
+    n_chunk = -(-M // emit.EMIT_CHUNK_ROWS)
+    nan = float("nan")
+    ptrs = _poison_all([((B * P, N * F), torch.float32, nan),
+                        ((B * 8, P), torch.float32, nan),
+                        ((B * (n_chunk + P + 2),), torch.int32, 7)], dev)
     before = _build.LAUNCHES["emit"]
     table, meta = emit.emit_table(*args)
     assert _build.LAUNCHES["emit"] == before + 1
+    assert [table.data_ptr(), meta.data_ptr()] == ptrs[:2]
     want_t, want_m = emit.emit_table_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(table, want_t)
     assert torch.equal(meta, want_m)
     cpu_t, cpu_m = emit.emit_table(gid.cpu(), pts.cpu(), *args[2:])
     assert torch.equal(table.cpu(), cpu_t) and torch.equal(meta.cpu(), cpu_m)
+    if case == "full_config":  # every sample has more runs than the budget
+        runs = ((gid[:, 1:] != gid[:, :-1]) & (gid[:, 1:] < HW)).sum(1) + 1
+        assert (runs > P).all()
+        assert (meta.reshape(B, 8, P)[:, 0] > 0).all()
 
 
 @pytest.mark.parametrize("case", ["random", "one_cell", "multisweep_f5"])
@@ -332,6 +382,7 @@ def test_pfn_kernel_matches_plain(dev, case):
     b = torch.from_numpy(rng.normal(size=(64,)).astype(np.float32))
     args = (batch.features.reshape(B * P, N, D), batch.mask.reshape(B * P, N),
             w.to(dev), b.to(dev))
+    _poison((B * P, 64), torch.float32, float("nan"), dev)
     before = _build.LAUNCHES["pfn"]
     got = pfn.pfn_fused(*args)
     assert _build.LAUNCHES["pfn"] == before + 1
@@ -341,24 +392,61 @@ def test_pfn_kernel_matches_plain(dev, case):
     assert not got[~batch.pillar_mask.reshape(-1)].any()
 
 
-def test_pfn_kernel_skips_masked_rows(dev):
-    """A mask with holes, and NaN in every masked slot: the kernel uses no
-    masked row, so it still agrees with the plain version."""
-    rng = np.random.default_rng(3)
-    P, N, D, C = 1003, 32, 9, 64
+def _pfn_holes(rng, P, N, D, C):
+    """A mask with holes (pillars 0-16 empty, pillar 17 valid only in its
+    last slot), NaN in every masked slot, and weights."""
     mask = rng.uniform(size=(P, N)) < 0.3
     mask[:17] = False
+    mask[17] = False
+    mask[17, N - 1] = True
     feats = rng.normal(size=(P, N, D)).astype(np.float32)
     feats[~mask] = np.nan
     w = (rng.normal(size=(D, C)) * 0.3).astype(np.float32)
     b = rng.normal(size=(C,)).astype(np.float32)
-    args = [torch.from_numpy(a).to(dev) for a in (feats, mask, w, b)]
+    return feats, mask, w, b
+
+
+def _pfn_check(dev, arrays):
+    """K6 into memory that held NaN, one launch: finite, within atol /
+    rtol 1e-5 of its plain version, 0 for the pillars with no valid slot."""
+    args = [torch.from_numpy(a).to(dev) for a in arrays]
+    P, C = arrays[0].shape[0], arrays[2].shape[1]
+    (ptr,) = _poison_all([((P, C), torch.float32, float("nan"))], dev)
+    before = _build.LAUNCHES["pfn"]
     got = pfn.pfn_fused(*args)
+    assert _build.LAUNCHES["pfn"] == before + 1
+    assert got.data_ptr() == ptr
     want = pfn.pfn_fused_plain(*args)
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     assert not got[:17].any()
+    assert got[17].any()  # its last slot alone sets it
+
+
+def test_pfn_kernel_skips_masked_rows(dev):
+    """A mask with holes, and NaN in every masked slot: the kernel uses no
+    masked row, so it still agrees with the plain version."""
+    _pfn_check(dev, _pfn_holes(np.random.default_rng(3), 1003, 32, 9, 64))
+
+
+# (P, N, D, C): a pillar count that is no multiple of a block's warps, more
+# pillars than the grid has warps (each warp takes several, its loads ahead
+# of its arithmetic), C = 96 and 256, D = 1, N = 16 and N = 40 (> 32)
+PFN_SHAPES = {
+    "ragged": (301, 32, 9, 64),
+    "many_pillars": (40_003, 32, 9, 64),
+    "c96": (1003, 32, 9, 96),
+    "c256": (1003, 32, 9, 256),
+    "d1": (1003, 32, 1, 64),
+    "n16_d10": (2001, 16, 10, 64),
+    "n40": (503, 40, 9, 64),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PFN_SHAPES))
+def test_pfn_kernel_shapes_into_poisoned_memory(dev, case):
+    _pfn_check(dev, _pfn_holes(np.random.default_rng(4), *PFN_SHAPES[case]))
 
 
 @pytest.mark.parametrize("m", [1, 1536, 4096, 20000])

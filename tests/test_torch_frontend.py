@@ -1,7 +1,8 @@
 """tpu_pillars_torch front end vs the JAX package on the CPU: sort +
 pillarize (bit-equal), the K1 emit table (bit-equal table/count/pid, sums to
-1e-4), the K2 fused PFN (atol 2e-4, rtol 1e-4 — tests/test_fused_pfn.py's
-tolerance) and the K3 scatter (bit-equal). The JAX Pallas kernels run in
+1e-4; K1's run rule, ``emit_runs_plain``, against the plain table and the
+runs of tests/emit_run_cases.py), the K2 fused PFN (atol 2e-4, rtol 1e-4 —
+tests/test_fused_pfn.py's tolerance) and the K3 scatter (bit-equal). The JAX Pallas kernels run in
 interpret mode; the port runs its kernels' plain versions (CPU tensors)."""
 
 import jax.numpy as jnp
@@ -14,6 +15,7 @@ from tpu_pillars.ops import emit_pallas as jemit
 from tpu_pillars.ops import fused_pfn as jfused
 from tpu_pillars.ops import voxelize as jvox
 from tpu_pillars.ops.bev_pallas import scatter_to_bev_ring
+import emit_run_cases
 from torch_port_util import cloud_batch, dense_cell_batch
 from tpu_pillars_torch import config as tconfig
 from tpu_pillars_torch.ops import bev as tbev
@@ -123,6 +125,57 @@ def test_emit_multisweep_f5(rng):
                                         torch.from_numpy(ns), tcfg)
     jt, jm, tt, tm = _emit_both(tg.numpy(), tp.numpy(), 16, 2000,
                                 tcfg.grid_h * tcfg.grid_w)
+    _assert_emit_equal(jt, jm, tt, tm)
+
+
+def _run_batch(f):
+    return emit_run_cases.run_batch(TCFG, f=f, chunk=temit.EMIT_CHUNK_ROWS)
+
+
+@pytest.mark.parametrize("f", [4, 5])
+def test_emit_runs_plain_holds_the_run_structure(f):
+    """K1's run rule on emit_run_cases' streams (more runs than P, exactly
+    P, runs across chunk edges, a run far longer than N, an empty sample,
+    every id valid with a run at cell H*W - 1): ``kept`` is min(runs, P),
+    ``starts`` each kept run's first row and the end of the last; the
+    plain table's rows and meta follow from them."""
+    gid, pts, runs = _run_batch(f)
+    S, M = gid.shape
+    P, N = TCFG.max_pillars, TCFG.max_points_per_pillar
+    HW = TCFG.grid_h * TCFG.grid_w
+    starts, kept = temit.emit_runs_plain(torch.from_numpy(gid), P, HW)
+    table, meta = temit.emit_table_plain(torch.from_numpy(gid),
+                                         torch.from_numpy(pts), N, P, HW)
+    assert starts.shape == (S, P + 1) and starts.dtype == torch.int32
+    starts, kept = starts.numpy(), kept.numpy()
+    table = table.numpy().reshape(S, P, N, f)
+    meta = meta.numpy().reshape(S, 8, P)
+    for s, (cells, lens) in enumerate(runs):
+        k = min(len(cells), P)
+        assert kept[s] == k, emit_run_cases.CASES[s]
+        first = np.concatenate([[0], np.cumsum(lens)])
+        n_set = k + 1 if k else 0
+        np.testing.assert_array_equal(starts[s, :n_set], first[:n_set])
+        assert (starts[s, n_set:] == -1).all()
+        cnt = np.minimum(lens[:k], N)
+        np.testing.assert_array_equal(meta[s, 0, :k], cnt)
+        np.testing.assert_array_equal(meta[s, 1, :k], cells[:k])
+        assert not meta[s, :, k:].any() and not table[s, k:].any()
+        for r in range(k):
+            kept_pts = pts[s, first[r]:first[r] + cnt[r]]
+            np.testing.assert_array_equal(table[s, r, :cnt[r]], kept_pts)
+            assert not table[s, r, cnt[r]:].any()
+            np.testing.assert_array_equal(
+                meta[s, 2:5, r], np.add.accumulate(kept_pts[:, :3])[-1])
+    assert emit_run_cases.CASES[-1] == "last_cell_full"
+    assert (gid[-1] < HW).all() and gid[-1, -1] == HW - 1
+
+
+@pytest.mark.parametrize("f", [4, 5])
+def test_emit_run_cases_match_jax(f):
+    gid, pts, _ = _run_batch(f)
+    jt, jm, tt, tm = _emit_both(gid, pts, TCFG.max_points_per_pillar,
+                                TCFG.max_pillars, TCFG.grid_h * TCFG.grid_w)
     _assert_emit_equal(jt, jm, tt, tm)
 
 

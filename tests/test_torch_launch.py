@@ -8,8 +8,9 @@
   library that records where each entry point was called: any device but
   the CPU takes the kernel's path, so the wrappers run to their launches
   without a card. ``tests/test_torch_cuda.py`` launches on ``cuda:1``
-  where a machine has two cards. K5 and K11, one launch each and no other
-  torch op than their allocations, return their documented outputs there.
+  where a machine has two cards. K1, K5, K6 and K11, one launch each and
+  no other torch op than their ``torch.empty`` allocations (a dispatch
+  mode records every op), return their documented outputs there.
 * K3's precondition: the ids that each caller of the BEV scatter passes
   (the fused and the classic serving front end, a training step) satisfy
   ``where(mask, pid, H*W)`` ascending, valid ids unique and in [0, H*W),
@@ -20,6 +21,7 @@
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from tpu_pillars.config import tiny_config as jax_tiny_config
 from torch_port_util import cloud_batch, random_variables
@@ -167,6 +169,8 @@ def test_wrapper_launches_under_its_inputs_device(card, kernel):
 
 # the outputs each one-launch wrapper documents: (shape, dtype) per output
 OUTPUTS = {
+    "emit": [((B * P, 4 * 4), torch.float32), ((B * 8, P), torch.float32)],
+    "pfn": [((P, C), torch.float32)],
     "assign": [((B, CFG.num_classes, A_C), torch.float32),
                ((B, CFG.num_classes, A_C), torch.int64),
                ((B, CFG.num_classes, 4), torch.float32),
@@ -177,14 +181,38 @@ OUTPUTS = {
 
 @pytest.mark.parametrize("kernel", sorted(OUTPUTS))
 def test_one_launch_wrappers_return_their_outputs(card, kernel):
-    """K5 and K11 make one guarded call and run no other torch op than
-    their allocations, so on ``meta`` they return their documented outputs
-    (K5's best_gt and gt_best_anchor int64)."""
+    """K1, K5, K6 and K11 make one guarded call and run no other torch op
+    than their allocations, so on ``meta`` they return their documented
+    outputs (K1's table and meta, K5's best_gt and gt_best_anchor int64)."""
     out = CALLS[kernel]()
     out = out if isinstance(out, tuple) else (out,)
     assert len(card.calls) == 1
     assert [(tuple(t.shape), t.dtype) for t in out] == OUTPUTS[kernel]
     assert all(t.device == META for t in out)
+
+
+class _Ops(TorchDispatchMode):
+    """Records the name of every torch op dispatched under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("kernel", sorted(OUTPUTS))
+def test_one_launch_wrappers_run_no_other_torch_op(card, kernel):
+    """Past a first call (K5 caches its constants on the device), a call
+    of a one-launch wrapper dispatches no torch op but ``empty``: its
+    inputs' allocations and its outputs' and scratch's."""
+    CALLS[kernel]()
+    with _Ops() as ops:
+        CALLS[kernel]()
+    assert set(ops.names) == {"aten.empty.memory_format"}, ops.names
+    assert len(card.calls) == 2
 
 
 def test_launch_refuses_tensors_on_two_devices(card):

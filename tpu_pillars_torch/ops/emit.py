@@ -14,8 +14,15 @@ pillar (canonical spec rules 3-4, ``ops/voxelize.py``). Rows past the last
 kept pillar are zero. Unlike the TPU kernel the table carries no ``whalf``
 row padding and no 128-lane padding.
 
-On a CUDA tensor :func:`emit_table` launches the hand-written kernel
-(``csrc/emit.cu``); on a CPU tensor it runs :func:`emit_table_plain`. The
+On a CUDA tensor :func:`emit_table` makes one launch of ``csrc/emit.cu``
+into ``torch.empty`` and runs no other torch op. What bounds it is writing
+the table and meta once. Ids ascend, so each pillar's points are one
+contiguous run of the sorted stream: the C entry counts run starts per
+``EMIT_CHUNK_ROWS`` ids, then gives each chunk's runs their ordinals and
+records each kept run's first row (:func:`emit_runs_plain` is that rule in
+plain PyTorch), then writes every table row and meta column once, one warp
+per row, spread over (tile of rows, sample) blocks. The design notes are in
+the ``.cu`` header. On a CPU tensor it runs :func:`emit_table_plain`. The
 two agree bit for bit: the sums are taken in rank order on both sides.
 
 The classic front end (``emit_pallas.py`` ``emit_pillar_table``,
@@ -34,6 +41,7 @@ from tpu_pillars_torch.ops.voxelize import (
 )
 
 META_ROWS = 8
+EMIT_CHUNK_ROWS = 1024  # ids per run-start count (kChunk in the .cu)
 
 
 def _check(gid, pts):
@@ -56,14 +64,17 @@ def emit_table(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
     if gid_sorted.device.type == "cpu":
         return emit_table_plain(gid_sorted, pts_sorted, n_pts, p_budget, hw)
     B, M, F = pts_sorted.shape
-    gid = gid_sorted.contiguous()
-    pts = pts_sorted.contiguous()
-    table = torch.zeros((B * p_budget, n_pts * F), dtype=torch.float32,
-                        device=gid.device)
-    meta = torch.zeros((B * META_ROWS, p_budget), dtype=torch.float32,
-                       device=gid.device)
-    _build.launch("emit", "emit_table", "ppppiiiiii", gid, pts, table, meta,
-                  B, M, F, n_pts, p_budget, hw)
+    dev = gid_sorted.device
+    table = torch.empty((B * p_budget, n_pts * F), dtype=torch.float32,
+                        device=dev)
+    meta = torch.empty((B * META_ROWS, p_budget), dtype=torch.float32,
+                       device=dev)
+    # per sample: run-start counts per chunk, kept pillars, first rows
+    scratch = torch.empty((B * (-(-M // EMIT_CHUNK_ROWS) + p_budget + 2),),
+                          dtype=torch.int32, device=dev)
+    _build.launch("emit", "emit_table", "pppppiiiiii",
+                  gid_sorted.contiguous(), pts_sorted.contiguous(), table,
+                  meta, scratch, B, M, F, n_pts, p_budget, hw)
     return table, meta
 
 
@@ -114,6 +125,38 @@ def emit_table_plain(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
         sums = sums + torch.where(j < cnt, rows[:, j, :3], 0.0)
     meta[:, 2:5] = sums.reshape(B, p_budget, 3).transpose(1, 2)
     return table, meta.reshape(B * META_ROWS, p_budget)
+
+
+def emit_runs_plain(gid_sorted: torch.Tensor, p_budget: int, hw: int):
+    """The run structure the kernel's first two passes record, in plain
+    PyTorch: (B, M) int32 ids ascending per sample (``hw`` marks invalid
+    points) -> (starts (B, P + 1) int32, kept (B,) int32). ``kept`` is
+    min(runs, P); row r < kept of the table holds the sample's points
+    ``starts[r]`` .. ``starts[r] + min(starts[r + 1] - starts[r], n_pts)``
+    (runs are contiguous, so run r ends where run r + 1 starts, or at the
+    first invalid point); ``starts[kept]`` is that end of the last kept
+    run, and entries past it are -1 (the kernel leaves them unwritten)."""
+    gid = gid_sorted.long()
+    B, M = gid.shape
+    dev = gid.device
+    valid = gid < hw
+    prev = torch.cat([torch.full((B, 1), -1, device=dev, dtype=gid.dtype),
+                      gid[:, :-1]], dim=1)
+    first = valid & (gid != prev)
+    n_runs = first.sum(dim=1)
+    kept = torch.clamp(n_runs, max=p_budget)
+    ordinal = torch.cumsum(first.long(), dim=1) - 1
+    idx = torch.arange(M, device=dev).expand(B, M)
+    starts = torch.full((B, p_budget + 1), -1, dtype=torch.long, device=dev)
+    # run r's first row for r <= P (run P's start ends run P - 1) ...
+    at = first & (ordinal <= p_budget)
+    starts[torch.arange(B, device=dev)[:, None].expand(B, M)[at],
+           ordinal[at]] = idx[at]
+    # ... and one past the last valid point where the sample has 1 to P
+    n_valid = valid.sum(dim=1)
+    few = (n_runs > 0) & (n_runs <= p_budget)
+    starts[torch.arange(B, device=dev)[few], n_runs[few]] = n_valid[few]
+    return starts.to(torch.int32), kept.to(torch.int32)
 
 
 def emit_pillar_table(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,

@@ -3,11 +3,20 @@ masked max over the points of each pillar.
 
 Port of ``tpu_pillars/ops/pfn_pallas.py`` (``pfn_fused``), the classic
 front end's PillarFeatureNet at inference. Fold the BatchNorm with
-``ops.fused_pfn.fold_bn``. On a CUDA tensor :func:`pfn_fused` launches the
-hand-written kernel (``csrc/pfn.cu``); on a CPU tensor it runs
-:func:`pfn_fused_plain`. Both sum the D products in order f = 0, 1, ...,
-then add the bias, and the kernel is built without fused multiply-adds, so
-the two round the same f32 operations.
+``ops.fused_pfn.fold_bn``. On a CUDA tensor :func:`pfn_fused` makes one
+launch of ``csrc/pfn.cu`` into ``torch.empty`` and runs no other torch op;
+on a CPU tensor it runs :func:`pfn_fused_plain`. Both sum the D products in
+order f = 0, 1, ..., then add the bias, and the kernel is built without
+fused multiply-adds, so the two round the same f32 operations.
+
+What bounds the kernel is bytes: the mask, the valid slots' rows and the
+output, a tenth of the (P, N, D) input on lidar-like sweeps. A warp reads
+the masks of a step of pillars first, loads only their valid rows, one per
+lane, and issues the next step's mask loads before it computes, with the
+weights in registers and no block-wide barrier. It takes the max over the
+rows' sums and adds the bias and the ReLU after it, which gives the same
+values because both are monotone; the design notes are in the ``.cu``
+header.
 """
 
 from __future__ import annotations
