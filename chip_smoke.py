@@ -289,7 +289,9 @@ def main() -> None:
         ms=cuda_ms(lambda: fused_pfn.pfn_from_table(*args2), 20),
         plain_ms=cuda_ms(lambda: fused_pfn.pfn_from_table_plain(*args2), 3),
         library_ms=None,
-        bound=bound(kept_pts * F * 4 + 5 * BATCH * P * 4 + feats.numel() * 4,
+        # the kept rows, five meta rows, the features, ids and counts
+        bound=bound(kept_pts * F * 4 + 5 * BATCH * P * 4 + feats.numel() * 4
+                    + 2 * BATCH * P * 4,
                     kept_pts * C * 2 * F + BATCH * P * C * 14))
 
     mask = cnt2 > 0.0
@@ -984,7 +986,8 @@ def classic_rows(cfg, points, counts, w_pfn, b_pfn, rows):
           f"{int((rank_p >= 64).sum())} points at rank >= 64, "
           f"{int((hist_p > 0).sum())} occupied cells")
     rows["binning"] = dict(
-        err=0.0, ms=cuda_ms(lambda: binning.rank_and_hist(r, c, H, w_pad), 5),
+        err=0.0, ms=cuda_ms(lambda: binning.rank_and_hist(r, c, H, w_pad),
+                            20),
         plain_ms=cuda_ms(lambda: binning.rank_and_hist_plain(r, c, H, w_pad),
                          3),
         library_ms=None,

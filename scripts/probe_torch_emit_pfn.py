@@ -42,13 +42,14 @@ import sys
 KERNELS = ("emit", "pfn")
 
 
-def ptxas_report(build_dir):
-    """Registers, shared memory and spills of K1's and K6's sources."""
+def ptxas_report(build_dir, names=KERNELS):
+    """Registers, shared memory and spills of the sources ``names`` (K1's
+    and K6's by default), each with its own flags."""
     from tpu_pillars_torch import _build
 
     out = {}
     os.makedirs(build_dir, exist_ok=True)
-    for name in KERNELS:
+    for name in names:
         cmd = ([_build._nvcc()] + _build.NVCC_FLAGS
                + _build.EXTRA_FLAGS.get(name, []) + [
                    "-Xptxas", "-v", "-o",
@@ -82,14 +83,34 @@ def device_ms(fn, n=20):
     return out
 
 
-def report(res, what, fn, wrapper_ms):
+def host_ms(fn, n=200):
+    """Host time per call of ``fn`` in ms: the wall clock of ``n`` calls
+    that are not waited for (the enqueue alone), after a warm-up."""
+    import time
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e3
+
+
+def report(res, what, fn, wrapper_ms, host=False):
     per = device_ms(fn)
     row = {"kernels": per, "sum": sum(per.values()), "wrapper_ms": wrapper_ms}
+    if host:
+        row["host_ms"] = host_ms(fn)
     res[what] = row
     print(f"{what}: device " + ", ".join(f"{k} {v:.4f}" for k, v in
                                          per.items())
           + f" ms; sum {row['sum']:.4f} ms"
-          + (f"; wrapper {wrapper_ms:.4f} ms" if wrapper_ms else ""),
+          + (f"; wrapper {wrapper_ms:.4f} ms" if wrapper_ms else "")
+          + (f"; host {row['host_ms']:.4f} ms" if host else ""),
           flush=True)
 
 

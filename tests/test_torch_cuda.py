@@ -7,11 +7,17 @@ JAX package, so it also runs on a machine that has neither:
 
 K1 emit and K3 scatter are held bit for bit, K3's backward too (K1 also on
 the run cases of tests/emit_run_cases.py and a full-config batch with more
-runs than the pillar budget, into memory that held NaN); K2 fused
-PFN and K6 PFN to atol 1e-5, rtol 1e-5 (both sides round the same f32
-operations in the same order; the kernels are built without fused
-multiply-adds); K10 radix sort, K8 binning and K9 block gather bit for
-bit (K10 also against the stable torch.sort, K9 against K3); K11 stream
+runs than the pillar budget, into memory that held NaN); K2 fused PFN bit
+for bit, its ids and counts too, into memory that held NaN (also at F = 3,
+4, 5, C = 32, 48, 64, 256, counts of 0, 1 and N interleaved and NaN in
+every slot past a count); K6 PFN to atol 1e-5, rtol 1e-5 (both sides round
+the same f32 operations in the same order; the kernels are built without
+fused multiply-adds); K10 radix sort, K8 binning and K9 block gather bit
+for bit (K10 also against the stable torch.sort, K9 against K3; K8 also on
+full-config cells with a 1,500-point cell in each sample, a sample whose
+131,072 points share one cell, M = 5,001, rows and cols out of range on
+both sides and a 2,048 x 2,048 grid); K2 refuses F = 9 and K8 a scratch
+one word short, and both raise; K11 stream
 front end to atol 1e-5 / rtol 1e-5 with the occupancy equal, and to atol
 1e-4 of the fused path's canvas (K1, K2, K3); K7 tiled IoU to atol 1e-5,
 and to 1e-3 of the dense IoU on boxes within 8 m of the origin (the JAX
@@ -29,8 +35,8 @@ is also held on a GT far from every anchor, GT on its tiles' edges and 64
 GT per class, with every case that no positive IoU decides exact; K6 is
 also held at C = 96 and 256, D = 1, N = 16 and 40, a ragged pillar count,
 more pillars than the grid has warps and a pillar whose only valid slot is
-the last, into memory that held NaN; K1, K5, K6 and K11 launch once per
-call; with two cards, every kernel launches on
+the last, into memory that held NaN; K1, K2, K5, K6, K8 and K11 launch
+once per call; with two cards, every kernel launches on
 ``cuda:1`` while ``cuda:0`` is current."""
 
 import numpy as np
@@ -164,6 +170,27 @@ def test_emit_kernel_bit_equal(dev, case):
         assert (meta.reshape(B, 8, P)[:, 0] > 0).all()
 
 
+def _fused_pfn_check(dev, cfg, table, meta, w_eff, w_dec):
+    """K2 into memory that held NaN (features, ids, counts), one launch:
+    bit-equal to its plain version."""
+    B, P = meta.shape[0] // 8, meta.shape[1]
+    C = w_eff.shape[1]
+    nan = float("nan")
+    ptrs = _poison_all([((B, P, C), torch.float32, nan),
+                        ((B, P), torch.int32, -7),
+                        ((B, P), torch.float32, nan)], dev)
+    before = _build.LAUNCHES["fused_pfn"]
+    got = fused_pfn.pfn_from_table(table, meta, w_eff, w_dec, cfg)
+    assert _build.LAUNCHES["fused_pfn"] == before + 1
+    assert [t.data_ptr() for t in got] == ptrs
+    want = fused_pfn.pfn_from_table_plain(table, meta, w_eff, w_dec, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    return got
+
+
 @pytest.mark.parametrize("case", ["random", "one_cell", "multisweep_f5"])
 def test_fused_pfn_kernel_matches_plain(dev, case):
     cfg, gid, pts = _sorted_centered(case, dev)
@@ -174,12 +201,68 @@ def test_fused_pfn_kernel_matches_plain(dev, case):
     w = torch.from_numpy((rng.normal(size=(D, C)) * 0.3).astype(np.float32))
     b = torch.from_numpy(rng.normal(size=(C,)).astype(np.float32))
     w_eff, w_dec = fused_pfn.fold_decoration(w.to(dev), b.to(dev), cfg)
-    got, pid, cnt = fused_pfn.pfn_from_table(table, meta, w_eff, w_dec, cfg)
-    want, want_pid, want_cnt = fused_pfn.pfn_from_table_plain(
-        table, meta, w_eff, w_dec, cfg)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    assert torch.equal(pid, want_pid) and torch.equal(cnt, want_cnt)
+    _fused_pfn_check(dev, cfg, table, meta, w_eff, w_dec)
+
+
+def _fused_pfn_table(rng, cfg, b, p, f, c):
+    """A (b * p, N * f) table and (b * 8, p) meta whose counts run 0, 1, N
+    and random values in turn, NaN in every slot at or past a pillar's
+    count, ids anywhere on the grid, and folded weights (f, c), (8, c)."""
+    n, hw = cfg.max_points_per_pillar, cfg.grid_h * cfg.grid_w
+    cnt = rng.integers(1, n + 1, (b, p)).astype(np.float32)
+    cnt.reshape(-1)[0::4] = 0
+    cnt.reshape(-1)[1::4] = 1
+    cnt.reshape(-1)[2::4] = n
+    table = rng.normal(size=(b * p, n, f)).astype(np.float32) * 2.0
+    table[np.arange(n)[None, :] >= cnt.reshape(-1, 1)] = np.nan
+    meta = np.zeros((b, 8, p), np.float32)
+    meta[:, 0] = cnt
+    meta[:, 1] = rng.integers(0, hw, (b, p))
+    meta[:, 2:5] = rng.normal(size=(b, 3, p)) * cnt[:, None]
+    w_eff = (rng.normal(size=(f, c)) * 0.3).astype(np.float32)
+    w_dec = rng.normal(size=(8, c)).astype(np.float32)
+    w_dec[6:] = 0.0
+    return [torch.from_numpy(a) for a in (table.reshape(b * p, n * f),
+                                          meta.reshape(b * 8, p), w_eff,
+                                          w_dec)]
+
+
+# (F, C, N, pillars per sample): F = 3, 4, 5; C = 32, 64 and 48 (lanes with
+# no channel, scalar stores) and 256; a pillar count that is no multiple of
+# a warp's 32
+FUSED_PFN_SHAPES = {
+    "f3_c32": (3, 32, 32, 1000),
+    "f4_c64": (4, 64, 32, 1003),
+    "f5_c48": (5, 48, 16, 997),
+    "f4_c256_n20": (4, 256, 20, 301),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_PFN_SHAPES))
+def test_fused_pfn_kernel_shapes_nan_tails(dev, case):
+    """Counts of 0, 1 and N interleaved, NaN past every count (never read:
+    the output is finite and bit-equal to the plain version, which masks
+    those slots), into memory that held NaN."""
+    f, c, n, p = FUSED_PFN_SHAPES[case]
+    cfg = tconfig.tiny_config(max_points_per_pillar=n)
+    args = [t.to(dev) for t in _fused_pfn_table(np.random.default_rng(f),
+                                                cfg, 3, p, f, c)]
+    feats, pid, cnt = _fused_pfn_check(dev, cfg, *args)
+    assert torch.isfinite(feats).all()
+    assert not feats[cnt == 0].any()
+    assert (cnt == 0).any() and (cnt == n).any() and (cnt == 1).any()
+
+
+def test_fused_pfn_entry_refuses_nine_features(dev):
+    """F = 9 passes the wrapper's checks and is refused by the C entry, so
+    the wrapper raises and counts no launch."""
+    cfg = tconfig.tiny_config(max_points_per_pillar=8)
+    args = [t.to(dev) for t in _fused_pfn_table(np.random.default_rng(9),
+                                                cfg, 1, 64, 9, 32)]
+    before = _build.LAUNCHES["fused_pfn"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_pfn.pfn_from_table(*args, cfg)
+    assert _build.LAUNCHES["fused_pfn"] == before
 
 
 def test_scatter_kernel_bit_equal(dev):
@@ -501,25 +584,131 @@ def test_radix_kernel_key_bits(dev, b, m, key_bits):
             assert all(torch.equal(x, y) for x, y in zip(got, want))
 
 
+def _binning_check(rows, cols, h_bins, w_pad):
+    """K8 into memory that held junk, one launch: rank and histogram
+    bit-equal to the plain version."""
+    B, M = rows.shape
+    ptrs = _poison_all([((B, M), torch.int32, -5),
+                        ((B, h_bins, w_pad), torch.float32, float("nan"))],
+                       rows.device)
+    before = _build.LAUNCHES["binning"]
+    got = binning.rank_and_hist(rows, cols, h_bins, w_pad)
+    assert _build.LAUNCHES["binning"] == before + 1
+    assert [t.data_ptr() for t in got] == ptrs
+    want = binning.rank_and_hist_plain(rows, cols, h_bins, w_pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    return want
+
+
 @pytest.mark.parametrize("case", ["random", "one_cell", "budget", "empty"])
 def test_binning_kernel_bit_equal(dev, case):
     cfg, make = CASES[case]
     pts, ns = make(np.random.default_rng(0))
     pts, ns = torch.from_numpy(pts).to(dev), torch.from_numpy(ns).to(dev)
     rows, cols = binning.cell_rows_cols(pts, ns, cfg)
-    w_pad = binning.padded_width(cfg)
-    before = _build.LAUNCHES["binning"]
-    got = binning.rank_and_hist(rows, cols, cfg.grid_h, w_pad)
-    assert _build.LAUNCHES["binning"] == before + 1
-    want = binning.rank_and_hist_plain(rows, cols, cfg.grid_h, w_pad)
-    torch.cuda.synchronize()
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    want = _binning_check(rows, cols, cfg.grid_h, binning.padded_width(cfg))
     if case == "one_cell":
         assert (want[0] == 64).any()
     got_b = binning.pillarize_batch_binned(pts, ns, cfg)
     want_b = pillarize_batch(pts, ns, cfg)
     for name in want_b._fields:
         assert torch.equal(getattr(got_b, name), getattr(want_b, name)), name
+
+
+def _full_dense(rng):
+    """Full-config cells for 4 x 131,072 points, a sixth of them invalid;
+    in each sample one cell holds 1,500 points scattered through it."""
+    cfg = tconfig.PillarsConfig()
+    b, m = 4, cfg.max_points
+    rows = rng.integers(0, cfg.grid_h, (b, m))
+    cols = rng.integers(0, cfg.grid_w, (b, m))
+    for i in range(b):
+        at = rng.choice(m, 1500, replace=False)
+        rows[i, at], cols[i, at] = 150 + i, 201
+    rows[rng.uniform(size=(b, m)) < 1 / 6] = cfg.grid_h
+    return rows, cols, cfg.grid_h, binning.padded_width(cfg)
+
+
+def _all_one_cell(rng):
+    """Sample 0: all 131,072 points in one cell; sample 1 uniform."""
+    cfg = tconfig.PillarsConfig()
+    m = cfg.max_points
+    rows = rng.integers(0, cfg.grid_h, (2, m))
+    cols = rng.integers(0, cfg.grid_w, (2, m))
+    rows[0], cols[0] = 123, 45
+    return rows, cols, cfg.grid_h, binning.padded_width(cfg)
+
+
+def _ragged(rng):
+    """M = 5,001 (no multiple of a 1,024-point tile) on 40 x 128 cells, a
+    few cells far past 64 points."""
+    rows = np.minimum(rng.geometric(0.2, (3, 5001)) - 1, 39)
+    cols = np.minimum(rng.geometric(0.3, (3, 5001)) - 1, 127)
+    return rows, cols, 40, 128
+
+
+def _out_of_range(rng):
+    """Rows and cols out of range on both sides, negative ones included."""
+    rows = rng.integers(-5, 13, (2, 4096))
+    cols = rng.integers(-5, 133, (2, 4096))
+    rows[:, :300] = rng.integers(-2**31, 0, 300)
+    cols[:, 300:600] = rng.integers(128, 2**31 - 1, 300)
+    return rows, cols, 8, 128
+
+
+def _large_grid(rng):
+    """2,048 x 2,048 cells (4,096 bands: more than 48 KB of shared memory a
+    block) and a cell of 300 points."""
+    rows = rng.integers(0, 2048, (2, 8192))
+    cols = rng.integers(0, 2048, (2, 8192))
+    rows[:, 100:400], cols[:, 100:400] = 1000, 77
+    return rows, cols, 2048, 2048
+
+
+BINNING_CASES = {"full_dense": _full_dense, "all_one_cell": _all_one_cell,
+                 "ragged_m": _ragged, "out_of_range": _out_of_range,
+                 "large_grid": _large_grid}
+
+
+@pytest.mark.parametrize("case", sorted(BINNING_CASES))
+def test_binning_kernel_cells_bit_equal(dev, case):
+    rows, cols, h_bins, w_pad = BINNING_CASES[case](
+        np.random.default_rng(7))
+    rows = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    cols = torch.from_numpy(cols.astype(np.int32)).to(dev)
+    rank, hist = _binning_check(rows, cols, h_bins, w_pad)
+    if case in ("full_dense", "all_one_cell", "ragged_m", "large_grid"):
+        assert (rank == 64).any() and hist.max() == 64.0
+    if case == "full_dense":
+        assert (hist == 64).sum() >= 4
+    if case == "out_of_range":
+        valid = (rows >= 0) & (rows < h_bins) & (cols >= 0) & (cols < w_pad)
+        assert (~valid).any() and not rank[~valid].any()
+
+
+def test_binning_entry_refuses_small_scratch(dev):
+    """The C entry checks its scratch size: one word short is refused, so
+    the launch raises and counts nothing; the wrapper refuses a grid of
+    more than 2^24 cells a sample, which the kernel does not take."""
+    rows = torch.zeros((2, 3000), dtype=torch.int32, device=dev)
+    rank = torch.empty_like(rows)
+    hist = torch.empty((2, 8, 128), device=dev)
+    words = binning.scratch_words(2, 3000, 8, 128)
+    scratch = torch.empty((words,), dtype=torch.int32, device=dev)
+    before = _build.LAUNCHES["binning"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.launch("binning", "rank_and_hist", "pppppiiiii", rows, rows,
+                      rank, hist, scratch, words - 1, 2, 3000, 8, 128)
+    assert _build.LAUNCHES["binning"] == before
+    _build.launch("binning", "rank_and_hist", "pppppiiiii", rows, rows,
+                  rank, hist, scratch, words, 2, 3000, 8, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(rank, binning.rank_and_hist_plain(rows, rows, 8,
+                                                         128)[0])
+    with pytest.raises(ValueError, match="at most"):
+        binning.rank_and_hist(rows, rows, 4097, 4096)
+    assert _build.LAUNCHES["binning"] == before + 1
 
 
 @pytest.mark.parametrize("case", ["random", "budget", "dense", "full_tile",

@@ -9,7 +9,10 @@ kernels' plain versions (CPU tensors).
   carried;
 * K8: the plain rank and histogram against ``rank_and_hist`` — the rank
   saturated at 64 (the JAX contract: exact below 64, >= 64 above), the
-  histogram exactly — including 200 points in one cell; and
+  histogram exactly — including 200 points in one cell; the kernel's
+  route (``rank_by_bands_plain``: bands of cells, each band's points in
+  index order split into eight runs, per-run counts) against the plain
+  rank and histogram; and
   ``pillarize_batch_binned`` against the JAX one and ``pillarize_batch``;
 * K9: the plain block gather against ``scatter_to_bev_emit``, including a
   dense full grid, and against the port's K3."""
@@ -126,6 +129,60 @@ def test_rank_saturates_at_cap_like_jax(chunk):
     np.testing.assert_array_equal(tr[0], np.minimum(np.arange(n), 64))
     np.testing.assert_array_equal(th, jh)
     assert th[0, 0, 3] == 64.0
+
+
+def _straddling_cells(rng):
+    """One sample of 4,096 slots: a cell of 1,500 points scattered over
+    every 1,024-point chunk, cells of exactly 64 and 63 points, a few small
+    cells, and invalid points on every side (negative rows and cols too)."""
+    m = 4096
+    rows = rng.integers(0, 8, m).astype(np.int32)
+    cols = rng.integers(0, 16, m).astype(np.int32)
+    slots = rng.permutation(m)
+    rows[slots[:1500]], cols[slots[:1500]] = 2, 5
+    rows[slots[1500:1564]], cols[slots[1500:1564]] = 7, 127
+    rows[slots[1564:1627]], cols[slots[1564:1627]] = 6, 100
+    bad = slots[1627:1827]
+    rows[bad[:50]] = -1
+    rows[bad[50:100]] = 8
+    cols[bad[100:150]] = -3
+    cols[bad[150:]] = 128
+    return rows[None], cols[None]
+
+
+def _tiny_clouds(rng):
+    """The tiny config's cells of four clouds (ten bands of 1,024 cells)."""
+    pts, ns = cloud_batch(rng, [3000, 4096, 1, 0], CFG, margin=4.0)
+    rows, cols = tbin.cell_rows_cols(torch.from_numpy(pts),
+                                     torch.from_numpy(ns), TCFG)
+    return rows.numpy(), cols.numpy(), TCFG.grid_h, tbin.padded_width(TCFG)
+
+
+BANDS = {
+    "cell_of_200": lambda rng: (np.zeros((1, 200), np.int32),
+                                np.full((1, 200), 3, np.int32), 8, 128),
+    "straddling": lambda rng: _straddling_cells(rng) + (8, 128),
+    "tiny_clouds": _tiny_clouds,
+}
+
+
+@pytest.mark.parametrize("case", sorted(BANDS))
+def test_band_route_matches_plain_rank(rng, case):
+    """K8's kernel ranks each band's points in index order, split into
+    eight runs whose per-cell counts are summed; that gives the plain
+    version's rank and histogram, 64 past a cell's 64th point, also for a
+    cell whose points fall in every run and every 1,024-point tile."""
+    rows, cols, h_bins, w_pad = BANDS[case](rng)
+    args = (torch.from_numpy(rows), torch.from_numpy(cols), h_bins, w_pad)
+    want, hist = tbin.rank_and_hist_plain(*args)
+    got, got_hist = tbin.rank_by_bands_plain(*args)
+    assert torch.equal(got, want) and torch.equal(got_hist, hist)
+    valid = (rows >= 0) & (rows < h_bins) & (cols >= 0) & (cols < w_pad)
+    assert (want[~torch.from_numpy(valid)] == 0).all()
+    if case != "tiny_clouds":
+        assert (want == 64).any() and hist.max() == 64.0
+    if case == "straddling":
+        assert (hist == 63.0).sum() == 1 and (want == 63).sum() == 2
 
 
 def _saturating_cloud(rng):

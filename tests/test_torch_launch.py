@@ -8,9 +8,9 @@
   library that records where each entry point was called: any device but
   the CPU takes the kernel's path, so the wrappers run to their launches
   without a card. ``tests/test_torch_cuda.py`` launches on ``cuda:1``
-  where a machine has two cards. K1, K5, K6 and K11, one launch each and
-  no other torch op than their ``torch.empty`` allocations (a dispatch
-  mode records every op), return their documented outputs there.
+  where a machine has two cards. K1, K2, K5, K6, K8 and K11, one launch
+  each and no other torch op than their ``torch.empty`` allocations (a
+  dispatch mode records every op), return their documented outputs there.
 * K3's precondition: the ids that each caller of the BEV scatter passes
   (the fused and the classic serving front end, a training step) satisfy
   ``where(mask, pid, H*W)`` ascending, valid ids unique and in [0, H*W),
@@ -170,6 +170,10 @@ def test_wrapper_launches_under_its_inputs_device(card, kernel):
 # the outputs each one-launch wrapper documents: (shape, dtype) per output
 OUTPUTS = {
     "emit": [((B * P, 4 * 4), torch.float32), ((B * 8, P), torch.float32)],
+    "fused_pfn": [((B, P, C), torch.float32), ((B, P), torch.int32),
+                  ((B, P), torch.float32)],
+    "binning": [((B, 64), torch.int32),
+                ((B, CFG.grid_h, binning.padded_width(CFG)), torch.float32)],
     "pfn": [((P, C), torch.float32)],
     "assign": [((B, CFG.num_classes, A_C), torch.float32),
                ((B, CFG.num_classes, A_C), torch.int64),
@@ -181,9 +185,11 @@ OUTPUTS = {
 
 @pytest.mark.parametrize("kernel", sorted(OUTPUTS))
 def test_one_launch_wrappers_return_their_outputs(card, kernel):
-    """K1, K5, K6 and K11 make one guarded call and run no other torch op
-    than their allocations, so on ``meta`` they return their documented
-    outputs (K1's table and meta, K5's best_gt and gt_best_anchor int64)."""
+    """K1, K2, K5, K6, K8 and K11 make one guarded call and run no other
+    torch op than their allocations, so on ``meta`` they return their
+    documented outputs (K1's table and meta, K2's features, int32 ids and
+    f32 counts, K5's best_gt and gt_best_anchor int64, K8's rank and
+    histogram)."""
     out = CALLS[kernel]()
     out = out if isinstance(out, tuple) else (out,)
     assert len(card.calls) == 1

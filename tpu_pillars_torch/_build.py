@@ -10,8 +10,9 @@ unchanged tree never rebuilds.
 Every wrapper launches through :func:`launch`, the one device guard: the
 launch runs with its tensors' device as the current device, on that
 device's current stream, so a tensor on ``cuda:1`` launches on ``cuda:1``
-whatever the calling thread's current device is. Every entry point returns
-the ``cudaError_t`` of its launch, and :func:`launch` raises on a non-zero
+whatever the calling thread's current device is (when that device is
+already current, it skips the guard). Every entry point returns the
+``cudaError_t`` of its launch, and :func:`launch` raises on a non-zero
 value. Kernels allocate nothing: the Python wrappers allocate outputs with
 ``torch``.
 
@@ -141,9 +142,10 @@ def launch(kernel: str, symbol: str, sig: str, *args,
     """Launch C entry ``symbol`` of kernel ``kernel`` (``sig`` as for
     :func:`function`) on ``args``: a tensor passes its data pointer, None a
     null pointer, anything else goes as it is. Every tensor must lie on one
-    device; the launch runs under ``torch.cuda.device`` of that device, on
-    its current stream. Raises on a launch error; then adds one to
-    ``LAUNCHES[kernel]`` unless ``count`` is false (a sidecar)."""
+    device; the launch runs with that device current (under
+    ``torch.cuda.device`` unless it already is), on its current stream.
+    Raises on a launch error; then adds one to ``LAUNCHES[kernel]`` unless
+    ``count`` is false (a sidecar)."""
     import torch
 
     # one pass over the arguments: this runs on every launch, and the host
@@ -165,8 +167,13 @@ def launch(kernel: str, symbol: str, sig: str, *args,
         raise ValueError(f"{symbol}: the tensors lie on "
                          f"{sorted(map(str, devices))}, not on one device")
     fn = function(kernel, symbol, sig)
-    with torch.cuda.device(device):
-        err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
+    if device.type == "cuda" and device.index == torch.cuda.current_device():
+        # already current: no guard, and the stream's raw handle without a
+        # Stream object (the two cost more host time than a short kernel)
+        err = fn(*ptrs, torch._C._cuda_getCurrentRawStream(device.index))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*ptrs, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA error {err} at launch")
     if count:

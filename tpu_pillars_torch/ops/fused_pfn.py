@@ -11,8 +11,20 @@ x' = x - cx, y' = y - cy:
 
 and ReLU is monotone, so max_j relu(W^T d_j + b) = relu(max_j W_eff^T r'_j
 + t): the decorated (P, N, D) tensor never exists. ``pfn_from_table``
-(K2) runs that on the emit table; on a CUDA tensor it launches
-``csrc/fused_pfn.cu``, on a CPU tensor :func:`pfn_from_table_plain`.
+(K2) runs that on the emit table; on a CPU tensor it runs
+:func:`pfn_from_table_plain`, on a CUDA tensor it makes one launch of
+``csrc/fused_pfn.cu`` into ``torch.empty`` (features, int32 ids and f32
+counts, all three written by the kernel) and runs no other torch op.
+
+What bounds the kernel is bytes, four fifths of them the feature store.
+The first port gave each thread one (pillar, channel), so a pillar's count,
+rows, meta and weights were loaded 64 times and waited on one after
+another. Now a block of four warps takes 128 pillars: their meta in five
+coalesced loads, a block scan that numbers their kept rows, the pillars
+split between the warps by work (rows and pillars), one row a lane staged
+in shared memory and read back as broadcasts (slots past the count never
+read), and each lane's channels and weights in registers; the design
+notes are in the ``.cu`` header.
 """
 
 from __future__ import annotations
@@ -63,29 +75,34 @@ def pfn_from_table(table, meta, w_eff, w_dec, config: PillarsConfig):
     """K2. table (B*P, N*F), meta (B*8, P) (``ops.emit.emit_table``),
     w_eff (F, C), w_dec (8, C) (:func:`fold_decoration`) ->
     (feats (B, P, C) f32, pid_per (B, P) int32, cnt (B, P) f32)."""
-    p_rows = meta.shape[1]
     if table.device.type == "cpu":
         return pfn_from_table_plain(table, meta, w_eff, w_dec, config)
+    dev = table.device
     for name, t in (("table", table), ("meta", meta), ("w_eff", w_eff),
                     ("w_dec", w_dec)):
-        if t.dtype != torch.float32 or t.device != table.device:
+        if t.dtype != torch.float32 or t.device != dev:
             raise TypeError(f"pfn_from_table: {name} must be float32 on "
-                            f"{table.device}, got {t.dtype} on {t.device}")
+                            f"{dev}, got {t.dtype} on {t.device}")
     N = config.max_points_per_pillar
     F, C = w_eff.shape
-    B, cnt, pid = _split_meta(meta, p_rows)
+    p_rows = meta.shape[1]
+    B = meta.shape[0] // META_ROWS
     rows = B * p_rows
-    if table.shape != (rows, N * F) or w_dec.shape != (META_ROWS, C):
+    if meta.shape[0] != B * META_ROWS or table.shape != (rows, N * F) \
+            or w_dec.shape != (META_ROWS, C):
         raise ValueError(f"pfn_from_table: table {tuple(table.shape)} / "
                          f"w_dec {tuple(w_dec.shape)} do not fit meta "
                          f"{tuple(meta.shape)}, N={N}, F={F}, C={C}")
     table, meta = table.contiguous(), meta.contiguous()
     w_eff, w_dec = w_eff.contiguous(), w_dec.contiguous()
-    out = torch.empty((rows, C), dtype=torch.float32, device=table.device)
-    _build.launch("fused_pfn", "fused_pfn", "pppppiiiiiiffff", table, meta,
-                  w_eff, w_dec, out, rows, p_rows, N, F, C, config.grid_w,
-                  config.x_min, config.y_min, config.voxel_x, config.voxel_y)
-    return out.reshape(B, p_rows, C), pid, cnt
+    out = torch.empty((B, p_rows, C), dtype=torch.float32, device=dev)
+    pid = torch.empty((B, p_rows), dtype=torch.int32, device=dev)
+    cnt = torch.empty((B, p_rows), dtype=torch.float32, device=dev)
+    _build.launch("fused_pfn", "fused_pfn", "pppppppiiiiiiffff", table, meta,
+                  w_eff, w_dec, out, pid, cnt, rows, p_rows, N, F, C,
+                  config.grid_w, config.x_min, config.y_min, config.voxel_x,
+                  config.voxel_y)
+    return out, pid, cnt
 
 
 def pfn_from_table_plain(table, meta, w_eff, w_dec, config: PillarsConfig):
