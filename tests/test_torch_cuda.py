@@ -21,7 +21,10 @@ one word short, and both raise; K11 stream
 front end to atol 1e-5 / rtol 1e-5 with the occupancy equal, and to atol
 1e-4 of the fused path's canvas (K1, K2, K3); K7 tiled IoU to atol 1e-5,
 and to 1e-3 of the dense IoU on boxes within 8 m of the origin (the JAX
-package's own test of its kernel); K4
+package's own test of its kernel), on N and M that are not whole tiles,
+blocks of 1, of 256 and of sides that split a tile over several CUDA
+blocks, pairs all cold (exactly 0), all hot, one hot tile among cold ones,
+views of other layouts (equal to the contiguous call) and empty batches; K4
 overlap equal except pairs whose IoU lies within 1e-4 of the threshold; K5
 best IoU within 2e-5 and the best GT equal wherever the IoU is positive and
 not tied within 2e-5; the detector's packed output on the card against the
@@ -35,8 +38,8 @@ is also held on a GT far from every anchor, GT on its tiles' edges and 64
 GT per class, with every case that no positive IoU decides exact; K6 is
 also held at C = 96 and 256, D = 1, N = 16 and 40, a ragged pillar count,
 more pillars than the grid has warps and a pillar whose only valid slot is
-the last, into memory that held NaN; K1, K2, K5, K6, K8 and K11 launch
-once per call; with two cards, every kernel launches on
+the last, into memory that held NaN; K1, K2, K5, K6, K7, K8 and K11
+launch once per call; with two cards, every kernel launches on
 ``cuda:1`` while ``cuda:0`` is current."""
 
 import numpy as np
@@ -1148,6 +1151,117 @@ def test_iou_tiled_kernel_matches_plain(dev, n, m, bi, bj):
     assert torch.equal(one, got[1])
     torch.testing.assert_close(one, dense, atol=1e-3, rtol=0)
     assert (want > 0).any()
+
+
+def _iou_far(rng, batch, n, x0, step):
+    """Boxes at x = x0 + step * index, |y| < 4 (circumradii below 6.8 m)."""
+    b = _boxes(rng, batch, n, span=4.0)
+    b[..., 0] = x0 + step * np.arange(n, dtype=np.float32)
+    return b
+
+
+def _iou_one_hot_tile(rng):
+    """Tiles of 64: every pair cold (10 m or more between centres along x)
+    but those of row tile 1 and column tile 2, whose boxes lie within 4 m
+    of the origin."""
+    b1, b2 = _iou_far(rng, 2, 256, 100.0, 20.0), _iou_far(rng, 2, 256,
+                                                          110.0, 20.0)
+    b1[:, 64:128, 0:2] = rng.uniform(-4.0, 4.0, (2, 64, 2))
+    b2[:, 128:192, 0:2] = rng.uniform(-4.0, 4.0, (2, 64, 2))
+    return b1, b2, 64, 64
+
+
+def _iou_all_hot(rng):
+    """Every pair within 1 m, every circumradius above 1.4 m."""
+    b1, b2 = _boxes(rng, 2, 150, 0.3), _boxes(rng, 2, 130, 0.3)
+    for b in (b1, b2):
+        b[..., 3:5] = rng.uniform(1.0, 3.0, b.shape[:-1] + (2,))
+    return b1, b2, 128, 128
+
+
+# K7 cases: (boxes1, boxes2, block_i, block_j), numpy, batch first
+IOU_CASES = {
+    "fillers in both tiles": lambda rng: (_boxes(rng, 2, 45, 8.0),
+                                          _boxes(rng, 2, 19, 8.0), 32, 16),
+    "blocks of 1": lambda rng: (_boxes(rng, 2, 9, 2.0),
+                                _boxes(rng, 2, 7, 2.0), 1, 1),
+    "blocks of 1 and 3": lambda rng: (_boxes(rng, 1, 40, 4.0),
+                                      _boxes(rng, 1, 33, 4.0), 1, 3),
+    "blocks of 256": lambda rng: (_boxes(rng, 2, 600, 12.0),
+                                  _boxes(rng, 2, 520, 12.0), 256, 256),
+    "tiles split unevenly": lambda rng: (_boxes(rng, 2, 200, 8.0),
+                                         _boxes(rng, 2, 150, 8.0), 100, 70),
+    "all cold": lambda rng: (_iou_far(rng, 2, 200, 0.0, 1000.0),
+                             _iou_far(rng, 2, 170, 500.0, 1000.0), 128, 128),
+    "all hot": _iou_all_hot,
+    "one hot tile": _iou_one_hot_tile,
+}
+
+
+@pytest.mark.parametrize("case", sorted(IOU_CASES))
+def test_iou_tiled_kernel_cases(dev, case, record_property):
+    b1, b2, bi, bj = IOU_CASES[case](np.random.default_rng(17))
+    b1, b2 = torch.from_numpy(b1).to(dev), torch.from_numpy(b2).to(dev)
+    before = _build.LAUNCHES["iou_tiled"]
+    got = iou_tiled.rotated_iou_bev_tiled(b1, b2, bi, bj)
+    assert _build.LAUNCHES["iou_tiled"] == before + 1
+    want = iou_tiled.rotated_iou_bev_tiled_plain(b1, b2, bi, bj)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    record_property("max_abs_err", err)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+    d2 = ((b1[:, :, None, :2] - b2[:, None, :, :2]) ** 2).sum(-1)
+    r1 = torch.sqrt(b1[..., 3] ** 2 + b1[..., 4] ** 2)
+    r2 = torch.sqrt(b2[..., 3] ** 2 + b2[..., 4] ** 2)
+    hot = d2 <= (0.5 * (r1[:, :, None] + r2[:, None, :])) ** 2
+    if case == "all cold":
+        assert not hot.any() and torch.equal(got, torch.zeros_like(got))
+    elif case == "all hot":
+        assert hot.all() and (got > 0).all()
+    elif case == "one hot tile":
+        tile = torch.zeros_like(hot)
+        tile[:, 64:128, 128:192] = True
+        assert hot[tile].any() and not hot[~tile].any()
+        assert (got[tile] > 0).any() and not got[~tile].any()
+    else:
+        assert (want > 0).any()
+
+
+def test_iou_tiled_kernel_reads_views(dev, record_property):
+    """Views of other layouts go to the kernel as they are: a slice of
+    wider rows, fields first, a 2-D row of a batch. Each equals the call on
+    contiguous copies and holds against the plain version."""
+    rng = np.random.default_rng(23)
+    b1 = torch.from_numpy(_boxes(rng, 3, 140, 8.0)).to(dev)
+    b2 = torch.from_numpy(_boxes(rng, 3, 90, 8.0)).to(dev)
+    wide = torch.full((3, 140, 9), float("nan"), device=dev)
+    wide[..., 1:8] = b1
+    first = b2.permute(2, 0, 1).contiguous()          # (7, B, M)
+    v1, v2 = wide[..., 1:8], first.permute(1, 2, 0)
+    assert not v1.is_contiguous() and not v2.is_contiguous()
+    want = iou_tiled.rotated_iou_bev_tiled(b1, b2, 64, 32)
+    got = iou_tiled.rotated_iou_bev_tiled(v1, v2, 64, 32)
+    one = iou_tiled.rotated_iou_bev_tiled(v1[2], v2[2], 64, 32)
+    plain = iou_tiled.rotated_iou_bev_tiled_plain(b1, b2, 64, 32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(one, want[2])
+    err = (got - plain).abs().max().item()
+    record_property("max_abs_err", err)
+    torch.testing.assert_close(got, plain, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("shape1,shape2", [((0, 5, 7), (0, 4, 7)),
+                                           ((2, 0, 7), (2, 4, 7)),
+                                           ((2, 5, 7), (2, 0, 7)),
+                                           ((0, 7), (6, 7))])
+def test_iou_tiled_kernel_empty(dev, shape1, shape2):
+    b1, b2 = torch.zeros(shape1, device=dev), torch.zeros(shape2, device=dev)
+    before = _build.LAUNCHES["iou_tiled"]
+    got = iou_tiled.rotated_iou_bev_tiled(b1, b2)
+    want = iou_tiled.rotated_iou_bev_tiled_plain(b1, b2)
+    assert _build.LAUNCHES["iou_tiled"] == before
+    assert got.shape == want.shape == shape1[:-1] + (shape2[-2],)
+    assert got.device == b1.device
 
 
 def test_iou_tiled_wrapper_refuses_wrong_inputs(dev):

@@ -8,9 +8,11 @@
   library that records where each entry point was called: any device but
   the CPU takes the kernel's path, so the wrappers run to their launches
   without a card. ``tests/test_torch_cuda.py`` launches on ``cuda:1``
-  where a machine has two cards. K1, K2, K5, K6, K8 and K11, one launch
-  each and no other torch op than their ``torch.empty`` allocations (a
-  dispatch mode records every op), return their documented outputs there.
+  where a machine has two cards. K1, K2, K5, K6, K7, K8 and K11, one
+  launch each and no other torch op than their ``torch.empty`` allocations
+  (a dispatch mode records every op), return their documented outputs
+  there; K7 passes views of other layouts to its kernel as they are, with
+  their strides.
 * K3's precondition: the ids that each caller of the BEV scatter passes
   (the fused and the classic serving front end, a training step) satisfy
   ``where(mask, pid, H*W)`` ascending, valid ids unique and in [0, H*W),
@@ -49,6 +51,7 @@ class _FakeCard:
     def __init__(self):
         self.current = []
         self.calls = []
+        self.args = []
 
     def device(self, device):
         card = self
@@ -83,6 +86,7 @@ class _FakeCard:
                     return 0                    # a host query, no launch
                 where = card.current[-1] if card.current else None
                 card.calls.append((kernel, self.symbol, where, args[-1]))
+                card.args.append(args)
                 return 0
 
         class Lib:
@@ -180,16 +184,17 @@ OUTPUTS = {
                ((B, CFG.num_classes, 4), torch.float32),
                ((B, CFG.num_classes, 4), torch.int64)],
     "stream_pfn": [((B, CFG.grid_h, CFG.grid_w, C), torch.float32)],
+    "iou_tiled": [((B, 40, 30), torch.float32)],
 }
 
 
 @pytest.mark.parametrize("kernel", sorted(OUTPUTS))
 def test_one_launch_wrappers_return_their_outputs(card, kernel):
-    """K1, K2, K5, K6, K8 and K11 make one guarded call and run no other
-    torch op than their allocations, so on ``meta`` they return their
+    """K1, K2, K5, K6, K7, K8 and K11 make one guarded call and run no
+    other torch op than their allocations, so on ``meta`` they return their
     documented outputs (K1's table and meta, K2's features, int32 ids and
-    f32 counts, K5's best_gt and gt_best_anchor int64, K8's rank and
-    histogram)."""
+    f32 counts, K5's best_gt and gt_best_anchor int64, K7's IoU, K8's rank
+    and histogram)."""
     out = CALLS[kernel]()
     out = out if isinstance(out, tuple) else (out,)
     assert len(card.calls) == 1
@@ -219,6 +224,35 @@ def test_one_launch_wrappers_run_no_other_torch_op(card, kernel):
         CALLS[kernel]()
     assert set(ops.names) == {"aten.empty.memory_format"}, ops.names
     assert len(card.calls) == 2
+
+
+# K7's inputs in layouts other than contiguous (B, n, 7): (boxes1, boxes2)
+IOU_VIEWS = {
+    "slices of wider rows": lambda: (_m((B, 40, 9))[..., :7],
+                                     _m((B, 30, 8))[..., 1:]),
+    "two-dimensional": lambda: (_m((40, 7)), _m((30, 7))),
+    "fields first": lambda: (_m((B, 7, 40)).transpose(1, 2),
+                             _m((7, B, 30)).permute(1, 2, 0)),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(IOU_VIEWS))
+def test_iou_tiled_reads_views_without_a_copy(card, layout):
+    """K7's kernel reads the boxes through the strides its wrapper passes:
+    a view reaches it as it is, and the call dispatches no copy, no view
+    and no other op than the output's ``empty``."""
+    b1, b2 = IOU_VIEWS[layout]()
+    with _Ops() as ops:
+        out = iou_tiled.rotated_iou_bev_tiled(b1, b2)
+    assert ops.names == ["aten.empty.memory_format"], ops.names
+    assert tuple(out.shape) == tuple(b1.shape[:-1]) + (b2.shape[-2],)
+    (args,) = card.args
+    p1, p2, _, batch, n, m, bi, bj, *strides, _ = args
+    lead = () if b1.dim() == 3 else (0,)
+    assert tuple(strides) == lead + b1.stride() + lead + b2.stride()
+    assert (p1, p2) == (b1.data_ptr(), b2.data_ptr())
+    assert (batch, n, m, bi, bj) == (B if b1.dim() == 3 else 1, 40, 30, 40,
+                                     30)
 
 
 def test_launch_refuses_tensors_on_two_devices(card):

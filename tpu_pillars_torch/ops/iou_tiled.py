@@ -16,12 +16,31 @@ agree with the JAX kernel to rounding; against the dense path they agree
 only to the tile recentring's f32 noise (the JAX tests hold the two at atol
 1e-3).
 
-On a CUDA tensor :func:`rotated_iou_bev_tiled` launches
-``csrc/iou_tiled.cu``; on a CPU tensor it runs
-:func:`rotated_iou_bev_tiled_plain`. Both take the tile sums as a halving
-tree over the tile padded with zeros to a power of two, and both take
-cos/sin of the yaws from torch, so on the card they round alike. A leading
-batch dim is accepted: (B, N, 7) x (B, M, 7) -> (B, N, M) in one launch.
+On a CUDA tensor :func:`rotated_iou_bev_tiled` makes one launch of
+``csrc/iou_tiled.cu`` and dispatches no torch op but the ``torch.empty`` of
+its output: the kernel reads the boxes through their strides (a view such
+as ``cands[..., :7]`` is not copied), computes cos and sin of the yaws
+itself and treats rows and columns past N and M as the fillers. On a CPU
+tensor it runs :func:`rotated_iou_bev_tiled_plain`. Both take the tile sums
+as a halving tree over the tile padded with zeros to a power of two, cos
+and sin as the card's ``cosf`` and ``sinf``, and a tile's mean as torch
+takes ``sum / block`` of a CUDA tensor: a product with the f32 reciprocal
+of the block (on a CPU tensor torch divides, which differs by an ulp of
+the mean where the block is not a power of two). So on the card they
+agree to rounding. A leading batch dim is accepted: (B, N, 7) x (B, M, 7)
+-> (B, N, M) in one launch.
+
+What bounds K7 on the card is arithmetic: ~850 operations and 32 IEEE
+divisions for each pair that passes the circumradius gate. The first
+kernel (one CUDA block per JAX tile, the gate a branch in every thread's
+walk over the tile) paid that for nearly every pair, since hot pairs are
+spread over a tile and a warp with one hot lane runs the whole path; its
+wrapper built the payload in six or more torch launches. The kernel now
+gives a CUDA block a 64 x 64 sub-range of its JAX tile (still recentred at
+the whole tile's mean), builds a table of each box's corners and
+half-planes once, lists the pairs that pass the gate and clips only those,
+and starts the blocks that hold the most hot pairs first.
+``csrc/iou_tiled.cu`` has the details, ``PERF.md`` section 6 the times.
 """
 
 from __future__ import annotations
@@ -32,7 +51,7 @@ from tpu_pillars_torch import _build
 
 _EPS = 1e-6
 _BIG = 1e9
-MAX_BLOCK = 256      # the CUDA kernel's shared-memory tile limit
+MAX_BLOCK = 256      # the largest tile side the CUDA kernel takes
 PAYLOAD = 6          # x, y, w, l, cos(yaw), sin(yaw)
 
 
@@ -143,21 +162,29 @@ def rotated_iou_bev_tiled(boxes1, boxes2, block_i: int = 128,
         raise TypeError(f"rotated_iou_bev_tiled wants float32 boxes on one "
                         f"device, got {boxes1.dtype} on {boxes1.device} and "
                         f"{boxes2.dtype} on {boxes2.device}")
-    b1 = boxes1 if batched else boxes1[None]
-    b2 = boxes2 if batched else boxes2[None]
-    B, n, m = b1.shape[0], b1.shape[1], b2.shape[1]
-    out = torch.empty((B, n, m), dtype=torch.float32, device=b1.device)
+    # the kernel reads both through their strides (a 2-D input is one
+    # sample, its sample stride unused), so no view or copy is dispatched
+    if batched:
+        B, n, m = boxes1.shape[0], boxes1.shape[1], boxes2.shape[1]
+        strides = boxes1.stride() + boxes2.stride()
+        shape = (B, n, m)
+    else:
+        B, n, m = 1, boxes1.shape[0], boxes2.shape[0]
+        strides = (0,) + boxes1.stride() + (0,) + boxes2.stride()
+        shape = (n, m)
+    out = torch.empty(shape, dtype=torch.float32, device=boxes1.device)
     if B == 0 or n == 0 or m == 0:
-        return out if batched else out[0]
+        return out
     bi, bj = _blocks(n, m, block_i, block_j)
     if bi > MAX_BLOCK or bj > MAX_BLOCK or bi < 1 or bj < 1:
         raise ValueError(f"the CUDA kernel takes blocks of 1..{MAX_BLOCK}, "
                          f"got ({bi}, {bj})")
-    p1 = _pad_tiles(_payload(b1), n, bi).contiguous()
-    p2 = _pad_tiles(_payload(b2), m, bj).contiguous()
-    _build.launch("iou_tiled", "iou_tiled", "pppiiiii", p1, p2, out, B, n, m,
-                  bi, bj)
-    return out if batched else out[0]
+    if max(strides) >= 2 ** 31:
+        raise ValueError(f"rotated_iou_bev_tiled: strides {strides} do not "
+                         f"fit the kernel's 32-bit ints")
+    _build.launch("iou_tiled", "iou_tiled", "pppiiiiiiiiiii", boxes1,
+                  boxes2, out, B, n, m, bi, bj, *strides)
+    return out
 
 
 def rotated_iou_bev_tiled_plain(boxes1, boxes2, block_i: int = 128,
