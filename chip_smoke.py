@@ -67,6 +67,18 @@ line:
      with remat "all" and off, reports the median step time, sweeps/s, peak
      memory and a synchronised split. K1, K3 and K5 must have launched
      during the training steps.
+     4b. Resume, EMA and the elastic hooks, at the same width: ``fit`` 4
+     steps unbroken, and 2 steps stopped before the third (it must log
+     ``preempted``); the full checkpoint restored into a fresh state must
+     equal the saved one bit for bit, and the last 2 steps on the rest of
+     the seeded stream must match the unbroken run's losses (rtol 2e-3:
+     cuDNN's backward need not be deterministic) with K1, K3 and K5
+     launched; ``fit`` with an ``EmaTracker`` and the synthetic eval hook
+     must log finite ``mAP`` and ``mAP_ema`` through JSONL and TensorBoard
+     (read back) with K1-K5 launched; ``Detector.from_checkpoint`` serves
+     the full file and its ``.ema`` export on the card. Times the
+     checkpoint (size, save, restore), the EMA update, the ``NaNGuard``
+     snapshot and the eval hook.
 
 The line before the last is a JSON object ``{"kernels": [...]}``, each
 kernel with its launches on the path that runs it (serving: K1-K4, classic
@@ -451,6 +463,9 @@ def main() -> None:
     # the main path of this slice for K5 is training; K1-K4 keep the
     # serving path's counts
     launches["assign"] = train_launches["assign"]
+
+    # ---- phase 4b: resume, EMA and the elastic hooks at full width
+    resume_phase(cfg, card)
 
     replaces = {"emit": "tpu_pillars/ops/emit_pallas.py:113",
                 "fused_pfn": "tpu_pillars/ops/fused_pfn.py:102",
@@ -891,6 +906,221 @@ def train_fit(cfg, dev, remat):
     del state
     torch.cuda.empty_cache()
     return launches
+
+
+class EventList:
+    """A ``fit`` logger that keeps its events."""
+
+    def __init__(self):
+        self.events = []
+
+    def log(self, event, **fields):
+        self.events.append({"event": event, **fields})
+
+    def losses(self):
+        return [[e[k] for k in ("loss", "cls", "loc", "dir")]
+                for e in self.events if e["event"] == "train_step"]
+
+
+def resume_phase(cfg, card):
+    """Phase 4b at batch 8, f32, remat "all", seed ``SEED``: ``fit`` 4
+    steps unbroken; 2 steps stopped before the third (``preempted``), the
+    full checkpoint restored into a fresh state (bit for bit), and the last
+    2 steps on the rest of the stream (losses within rtol 2e-3 of the
+    unbroken run's; K1, K3 and K5 launch); ``Detector.from_checkpoint`` on
+    the full file and its ``.ema`` export; ``fit`` with an ``EmaTracker``
+    and the synthetic eval hook (finite ``mAP`` and ``mAP_ema``) logging
+    through a ``TeeLogger`` whose TensorBoard events read back. Times the
+    checkpoint, the EMA update, the ``NaNGuard`` snapshot and the eval
+    hook."""
+    import itertools
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.data.synthetic import make_scene
+    from tpu_pillars_torch.detector import Detector
+    from tpu_pillars_torch.evaluation.pipeline import evaluate_scenes
+    from tpu_pillars_torch.train.checkpoint import (
+        restore_checkpoint, save_checkpoint,
+    )
+    from tpu_pillars_torch.train.elastic import NaNGuard
+    from tpu_pillars_torch.train.ema import EmaTracker
+    from tpu_pillars_torch.train.loop import (
+        fit, make_synthetic_eval_fn, synthetic_batches,
+    )
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+    from tpu_pillars_torch.train.step import make_train_step
+    from tpu_pillars_torch.utils.logging import JsonlLogger
+    from tpu_pillars_torch.utils.tensorboard import (
+        TeeLogger, TensorBoardWriter, read_events,
+    )
+
+    t_phase = time.perf_counter()
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=4, batch_size=BATCH)
+    step = make_train_step(cfg, remat="all")
+
+    def stream():
+        return synthetic_batches(cfg, tcfg, seed=SEED)
+
+    def host_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+
+    def tensors(st):
+        opt = st.optimizer
+        return (list(st.model.state_dict().items())
+                + [(f"mu{i}", m) for i, m in enumerate(opt.mu)]
+                + [(f"nu{i}", m) for i, m in enumerate(opt.nu)])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "ckpt.msgpack")
+        whole = EventList()
+        fit(create_train_state(cfg, tcfg, seed=SEED), stream(), 4,
+            step_fn=step, config=cfg, logger=whole, log_every=1)
+        first = EventList()
+        polls = itertools.count()
+        killed = fit(create_train_state(cfg, tcfg, seed=SEED), stream(), 4,
+                     step_fn=step, config=cfg, logger=first, log_every=1,
+                     ckpt_path=ckpt, stop=lambda: next(polls) >= 2)
+        if first.events[-1] != {"event": "preempted", "step": 2}:
+            fail(f"the stopped run logged {first.events[-1]}, not "
+                 f"'preempted' at step 2")
+        restored = restore_checkpoint(
+            ckpt, create_train_state(cfg, tcfg, seed=SEED + 1), config=cfg)
+        # (a) the restored state is the saved one, on the card
+        if (restored.step, restored.optimizer.count) != (2, 2):
+            fail(f"restored step / count {restored.step} / "
+                 f"{restored.optimizer.count}, not 2 / 2")
+        for (name, a), (_, b) in zip(tensors(restored), tensors(killed)):
+            if a.device.type != "cuda" or not torch.equal(a, b):
+                fail(f"restored {name} differs from the saved state")
+        mb = os.path.getsize(ckpt) / 1e6
+        save_ms = host_ms(lambda: save_checkpoint(
+            os.path.join(tmp, "timed.msgpack"), killed, config=cfg))
+        template = create_train_state(cfg, tcfg, seed=SEED + 2)
+        restore_ms = host_ms(lambda: restore_checkpoint(
+            ckpt, template, config=cfg))
+        guard = NaNGuard(None, config=cfg)
+        guard_ms = host_ms(lambda: guard.observe(killed, 1.0))
+        del killed, template, guard
+        torch.cuda.empty_cache()
+
+        # (b), (c): the last 2 steps from the restored state
+        second = EventList()
+        _build.reset_launches()
+        restored = fit(restored, itertools.islice(stream(), 2, None), 2,
+                       step_fn=step, config=cfg, logger=second, log_every=1)
+        torch.cuda.synchronize()
+        resumed = dict(_build.LAUNCHES)
+        for name in ("emit", "bev_scatter", "assign"):
+            if resumed[name] == 0:
+                fail(f"kernel {name} did not launch in the resumed steps")
+        got = np.asarray(first.losses() + second.losses())
+        want = np.asarray(whole.losses())
+        d = float(np.abs(got - want).max())
+        print(f"resume: losses of the 4 steps, unbroken {want[:, 0]}, "
+              f"stopped at 2 and resumed {got[:, 0]}; max |d| {d:.3e} "
+              f"(total, cls, loc, dir), bit-equal {bool((got == want).all())}"
+              f"; launches in the resumed steps {resumed}")
+        if not np.isfinite(got).all() or not np.allclose(got, want,
+                                                         rtol=2e-3, atol=0):
+            fail(f"resumed losses {got.tolist()} vs unbroken "
+                 f"{want.tolist()} (rtol 2e-3)")
+
+        # (e), (f): EMA and the eval hook, logged through JSONL and
+        # TensorBoard
+        params = list(restored.model.parameters())
+        timer = EmaTracker(params, decay=0.999)
+        ema_ms = cuda_ms(lambda: timer.update(params), iters=10)
+        del timer
+        eval_fn = make_synthetic_eval_fn(cfg, num_scenes=8)
+        eval_times = []
+
+        def timed_eval(st):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = eval_fn(st)
+            eval_times.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        ema = EmaTracker(restored.model.parameters(), decay=0.999)
+        tb_dir = os.path.join(tmp, "tb")
+        jsonl = os.path.join(tmp, "train.jsonl")
+        _build.reset_launches()
+        with TeeLogger(JsonlLogger(jsonl), TensorBoardWriter(tb_dir)) as lg:
+            restored = fit(restored, itertools.islice(stream(), 4, None), 4,
+                           step_fn=step, config=cfg, logger=lg, log_every=1,
+                           ckpt_path=ckpt, eval_fn=timed_eval, eval_every=2,
+                           ema=ema)
+            tb_path = lg.sinks[1].path
+        torch.cuda.synchronize()
+        with_eval = dict(_build.LAUNCHES)
+        for name in ("emit", "fused_pfn", "bev_scatter", "nms_overlap",
+                     "assign"):
+            if with_eval[name] == 0:
+                fail(f"kernel {name} did not launch in the EMA and eval run")
+        evals = [json.loads(x) for x in open(jsonl)]
+        evals = [e for e in evals if e["event"] == "eval"]
+        if [e["step"] for e in evals] != [6, 8] or not all(
+                np.isfinite([e["mAP"], e["mAP_ema"]]).all() for e in evals):
+            fail(f"eval events {evals}: want finite mAP and mAP_ema at "
+                 f"steps 6 and 8")
+        tb = list(read_events(tb_path))
+        tags = [t for e in tb for t in e["scalars"]]
+        if tags.count("train_step/loss") != 4 or \
+                tags.count("eval/mAP_ema") != 2:
+            fail(f"TensorBoard events read back: {tags}")
+        print(f"eval hook: {[round(e['mAP'], 6) for e in evals]} mAP, "
+              f"{[round(e['mAP_ema'], 6) for e in evals]} mAP_ema at steps "
+              f"6 and 8; {len(tb)} TensorBoard events read back; launches "
+              f"in the run {with_eval}")
+
+        # (d) both files served on the card
+        ema_mb = os.path.getsize(ckpt + ".ema") / 1e6
+        cloud = synthetic_batches(cfg, tcfg, seed=SEED + 3)
+        points, num_points = next(cloud)[:2]
+        for path in (ckpt, ckpt + ".ema"):
+            det = Detector.from_checkpoint(cfg, path)
+            out = det.predict_packed_batch(points, num_points).cpu().numpy()
+            if det.device.type != "cuda" or not np.isfinite(out).all():
+                fail(f"Detector.from_checkpoint({os.path.basename(path)}) "
+                     f"gave no finite detections on the card")
+            if path.endswith(".ema") and not all(
+                    torch.equal(a, b)
+                    for a, b in zip(det.model.parameters(), ema.params)):
+                fail("the .ema file does not hold the EMA parameters")
+        # the eval hook's time, split: the 8 single-sweep predicts (card)
+        # and the rest (scoring on the host), on make_synthetic_eval_fn's
+        # scenes with the EMA weights
+        rng = np.random.default_rng(100_000)
+        scenes = [make_scene(rng, cfg) for _ in range(8)]
+        boxes = []
+        predict_ms = host_ms(lambda: boxes.append(
+            sum(len(det.predict(sc.points)) for sc in scenes)), reps=1)
+        hook_ms = host_ms(lambda: evaluate_scenes(det, scenes), reps=1)
+        del det
+    print(f"resume phase ({card}): full checkpoint {mb:.3f} MB (its .ema "
+          f"export {ema_mb:.3f} MB), save "
+          f"{save_ms:.2f} ms, restore {restore_ms:.2f} ms (host clock, "
+          f"synchronised, median of 3); EMA update {ema_ms:.4f} ms a step "
+          f"(CUDA events); NaNGuard snapshot {guard_ms:.2f} ms (median of "
+          f"3); eval hook, 8 scenes, raw / EMA: "
+          f"{' / '.join(f'{t:.1f}' for t in eval_times)} ms (steps 6 and "
+          f"8, the first call builds the Detector); the EMA file's "
+          f"evaluate_scenes {hook_ms:.1f} ms, of which 8 predicts "
+          f"{predict_ms:.1f} ms ({boxes[0]} boxes); phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del restored, ema
+    torch.cuda.empty_cache()
 
 
 def index_copy_scatter(feats, pid, mask, hw):

@@ -31,7 +31,9 @@ not tied within 2e-5; the detector's packed output on the card against the
 same detector on the CPU at the tolerance of
 tests/test_detector_e2e.py::test_jitted_pipeline_matches_cpu_reference; two
 training steps on the card against the same steps on the CPU (loss rtol
-1e-3, equal positives). K3, K4 and K11 also write every element of memory
+1e-3, equal positives); a full-config full checkpoint restored onto the
+card bit for bit, and EMA updates on the card equal to the same updates on
+the CPU. K3, K4 and K11 also write every element of memory
 that held NaN / 0xFF before the call; K11 keeps exactly the runs of its
 pillar budget (tests/stream_budget_cases.py, and a full-config batch); K5
 is also held on a GT far from every anchor, GT on its tiles' edges and 64
@@ -1034,6 +1036,58 @@ def test_train_steps_on_card_match_cpu(dev):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert int(a.num_pos) == int(b.num_pos) > 0
         np.testing.assert_allclose(float(a.total), float(b.total), rtol=1e-3)
+
+
+def test_full_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A full checkpoint of a full-config state on the card, restored into
+    another state on the card: every parameter, statistic, moment, the
+    count and the step bit for bit, on the card."""
+    from tpu_pillars_torch.train.checkpoint import (
+        restore_checkpoint, save_checkpoint,
+    )
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+
+    cfg = tconfig.PillarsConfig()
+    tcfg = TrainConfig(batch_size=8, total_steps=10)
+    saved = create_train_state(cfg, tcfg, seed=1)
+    rng = np.random.default_rng(2)
+    saved.model.load_state_dict(_random_state_dict(cfg, 3))
+    saved.optimizer.load_state_arrays({"count": 7, **{
+        k: [torch.from_numpy(rng.normal(0, 1e-3, tuple(p.shape))
+                             .astype(np.float32))
+            for p in saved.optimizer.params] for k in ("mu", "nu")}})
+    saved.step = 7
+    path = str(tmp_path / "ckpt.msgpack")
+    save_checkpoint(path, saved, config=cfg)
+    restored = restore_checkpoint(path, create_train_state(cfg, tcfg, seed=4),
+                                  config=cfg)
+    assert restored.step == restored.optimizer.count == 7
+    want = saved.model.state_dict()
+    for name, t in restored.model.state_dict().items():
+        assert t.device.type == "cuda" and torch.equal(t, want[name]), name
+    for k in ("mu", "nu"):
+        for a, b in zip(getattr(restored.optimizer, k),
+                        getattr(saved.optimizer, k)):
+            assert a.device.type == "cuda" and torch.equal(a, b), k
+
+
+def test_ema_update_on_card_matches_cpu(dev):
+    """Five EMA updates (warmup on) of the full config's parameters on the
+    card equal the same updates on CPU copies, bit for bit."""
+    from tpu_pillars_torch.train.ema import EmaTracker
+
+    sd = _random_state_dict(tconfig.PillarsConfig(), 5)
+    params = [t for name, t in sd.items() if "running" not in name]
+    rng = np.random.default_rng(6)
+    trackers = {where: EmaTracker([p.to(where) for p in params],
+                                  decay=0.999) for where in ("cuda", "cpu")}
+    for _ in range(5):
+        params = [p + torch.from_numpy(rng.normal(
+            0, 1e-2, tuple(p.shape)).astype(np.float32)) for p in params]
+        for where, tr in trackers.items():
+            tr.update([p.to(where) for p in params])
+    for a, b in zip(trackers["cuda"].params, trackers["cpu"].params):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

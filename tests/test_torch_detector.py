@@ -142,7 +142,9 @@ def test_port_imports_no_jax():
                    "evaluation/cli.py", "evaluation/map_eval.py",
                    "evaluation/map_eval_alt.py", "train/prefetch.py",
                    "data/lyft.py", "data/fixture.py", "data/submission.py",
-                   "reference_cpu/postprocess.py"):
+                   "reference_cpu/postprocess.py", "train/elastic.py",
+                   "train/ema.py", "utils/logging.py",
+                   "utils/tensorboard.py"):
         assert os.path.join("tpu_pillars_torch", module) in rel, module
     for path in files:
         for mod in _imports(path):

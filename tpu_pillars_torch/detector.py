@@ -205,10 +205,20 @@ class Detector:
         self.model = model.to(self.device).eval()
         self.fused_frontend = use_fused_frontend(config, use_pallas_pfn,
                                                  fused_frontend)
+        self.use_pallas_pfn = use_pallas_pfn
         self._stage1 = build_model_fn(self.model, config,
                                       use_pallas_pfn=use_pallas_pfn,
                                       fused_frontend=fused_frontend)
         self._post = build_postprocess_fn(config, self.device)
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        """Serve other weights with the same programs: copy ``state_dict``
+        into the model and fold the PFN weights again (stage 1 takes them
+        once, when it is built)."""
+        self.model.load_state_dict(state_dict)
+        self._stage1 = build_model_fn(self.model, self.config,
+                                      use_pallas_pfn=self.use_pallas_pfn,
+                                      fused_frontend=self.fused_frontend)
 
     @classmethod
     def from_checkpoint(cls, config: PillarsConfig, path: str, **kw

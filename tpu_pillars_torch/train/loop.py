@@ -1,22 +1,28 @@
 """Training driver: seeded synthetic batches in, the training step on the
-card, one JSON line every 10 steps and after the last (as the JAX loop
-logs), an inference checkpoint at the end.
-Port of ``tpu_pillars/train/loop.py`` (synthetic data, no augmentation).
+card, JSONL metrics, full checkpoints every ``ckpt_every`` steps and at the
+end, evaluation during training, and the elastic hooks. Port of
+``tpu_pillars/train/loop.py`` (synthetic data, no augmentation).
 
     python -m tpu_pillars_torch.train.loop --full-size --steps 20 --batch 8 \\
-        --out DIR
+        --out DIR [--resume] [--ema 0.999] [--eval-every N] [--tensorboard]
 
-writes ``DIR/train.jsonl`` and ``DIR/ckpt.msgpack``, which both packages'
-``Detector.from_checkpoint`` serve. ``--device cpu`` runs the kernels'
-plain versions on the CPU (use the default tiny config there).
-``--prefetch N`` (default 2) builds N batches ahead in a background thread
-and moves them to the device there; 0 builds each batch in the step.
+writes ``DIR/train.jsonl``, ``DIR/ckpt.msgpack`` (a full checkpoint, which
+both packages resume and both packages' ``Detector.from_checkpoint``
+serve), ``DIR/heartbeat.json`` (step and time, every step), with ``--ema``
+``DIR/ckpt.msgpack.ema`` (the EMA weights, inference only), with
+``--tensorboard`` event files under ``DIR/tb``, and on a non-finite loss
+``DIR/diverged.msgpack`` (the last finite state). SIGTERM makes the run
+checkpoint and exit 0; ``--resume`` continues from ``DIR/ckpt.msgpack``
+on the same loss curve. ``--device cpu`` runs the kernels' plain versions
+on the CPU (use the default tiny config there). ``--prefetch N`` (default
+2) builds N batches ahead in a background thread and moves them to the
+device there; 0 builds each batch in the step.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
+import itertools
 import os
 import sys
 import time
@@ -27,12 +33,19 @@ import torch
 
 from tpu_pillars_torch.config import PillarsConfig, tiny_config
 from tpu_pillars_torch.data.synthetic import make_scene, scenes_to_train_batch
-from tpu_pillars_torch.train.checkpoint import export_inference_checkpoint
+from tpu_pillars_torch.train.checkpoint import (
+    export_inference_checkpoint, restore_checkpoint, save_checkpoint,
+)
+from tpu_pillars_torch.train.elastic import (
+    GracefulShutdown, Heartbeat, NaNGuard,
+)
+from tpu_pillars_torch.train.ema import maybe_tracker
 from tpu_pillars_torch.train.prefetch import device_prefetch
 from tpu_pillars_torch.train.state import (
     TrainConfig, TrainState, create_train_state,
 )
 from tpu_pillars_torch.train.step import batch_to_device, make_train_step
+from tpu_pillars_torch.utils.logging import JsonlLogger
 
 
 def synthetic_batches(config: PillarsConfig, tcfg: TrainConfig, seed: int = 0,
@@ -47,52 +60,119 @@ def synthetic_batches(config: PillarsConfig, tcfg: TrainConfig, seed: int = 0,
         yield scenes_to_train_batch(scenes, config, tcfg.max_gt_boxes)
 
 
-class JsonlLogger:
-    """One JSON object per line to a file and, optionally, stdout."""
-
-    def __init__(self, path: Optional[str] = None, echo: bool = True):
-        self.path = path
-        self.echo = echo
-        if path:
-            os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-
-    def log(self, event: str, **fields) -> None:
-        line = json.dumps({"event": event, **fields})
-        if self.echo:
-            print(line, flush=True)
-        if self.path:
-            with open(self.path, "a") as f:
-                f.write(line + "\n")
-
-
 def fit(state: TrainState, batches: Iterable, steps: int,
         step_fn: Optional[Callable] = None, config: PillarsConfig = None,
         logger: Optional[JsonlLogger] = None, log_every: int = 10,
-        ckpt_path: Optional[str] = None) -> TrainState:
+        ckpt_path: Optional[str] = None, ckpt_every: int = 500,
+        eval_fn: Optional[Callable] = None,
+        eval_every: int = 1000,
+        stop: Optional[Callable[[], bool]] = None,
+        heartbeat=None, guard=None, ema=None) -> TrainState:
     """Run ``steps`` optimizer steps on numpy ``batches``. step_fn defaults
     to ``make_train_step(config)``. Logs loss, cls, loc, dir, num_pos and
-    steps/s every ``log_every`` steps and after the last; writes an
-    inference checkpoint to ``ckpt_path`` at the end."""
+    steps/s every ``log_every`` steps and after the last.
+
+    ckpt_path: a full checkpoint (``train.checkpoint.save_checkpoint``)
+    every ``ckpt_every`` steps (logged as 'checkpoint') and at the end.
+
+    eval_fn, if given, is called as eval_fn(state) every ``eval_every``
+    steps and at the end; its returned dict is logged as an 'eval' event
+    (e.g. :func:`make_synthetic_eval_fn`).
+
+    Elastic hooks (``train/elastic.py``): ``stop`` is polled before each
+    step — when it goes true (a ``GracefulShutdown`` caught SIGTERM) the
+    loop logs a 'preempted' event, checkpoints, and returns for a
+    ``--resume`` restart. ``heartbeat`` gets .beat(step) every step (a
+    host counter: no device sync). ``guard`` (``NaNGuard``) gets
+    .observe(state, loss) at the logging cadence, where the loss is on the
+    host anyway.
+
+    ema (``train/ema.py`` ``EmaTracker``): updated after every step; eval
+    runs on BOTH the raw and the EMA weights (the EMA metrics get an
+    '_ema' suffix), and every checkpoint write also exports ``ckpt_path +
+    '.ema'``, an inference checkpoint of the EMA weights (served by
+    ``Detector.from_checkpoint``; resume refuses it)."""
     if step_fn is None:
         step_fn = make_train_step(config)
     logger = logger or JsonlLogger(echo=False)
     device = next(state.model.parameters()).device
     t0 = time.perf_counter()
+    step0 = state.step
+
+    def run_eval():
+        if eval_fn is None:
+            return
+        metrics = dict(eval_fn(state) or {})
+        if ema is not None:
+            for k, v in (eval_fn(ema.swap_into(state)) or {}).items():
+                metrics[f"{k}_ema"] = v
+        logger.log("eval", step=state.step,
+                   **{k: float(v) for k, v in metrics.items()})
+
+    def save_all(path):
+        save_checkpoint(path, state, config=config)
+        if ema is not None:
+            export_inference_checkpoint(path + ".ema", ema.swap_into(state),
+                                        config=config)
+
     i = -1
     for i, arrays in enumerate(batches):
         if i >= steps:
             break
+        if stop is not None and stop():
+            logger.log("preempted", step=step0 + i)
+            break
         state, losses = step_fn(state, batch_to_device(arrays, device))
+        if ema is not None:
+            ema.update(state.model.parameters())
+        if heartbeat is not None:
+            heartbeat.beat(step0 + i + 1)
         if (i + 1) % log_every == 0 or i + 1 == steps:
+            loss_val = float(losses.total)
             logger.log(
-                "train_step", step=state.step, loss=float(losses.total),
+                "train_step", step=state.step, loss=loss_val,
                 cls=float(losses.cls), loc=float(losses.loc),
                 dir=float(losses.dir), num_pos=float(losses.num_pos),
                 steps_per_s=round((i + 1) / (time.perf_counter() - t0), 3))
+            if guard is not None:
+                guard.observe(state, loss_val)
+        if ckpt_path and (i + 1) % ckpt_every == 0:
+            save_all(ckpt_path)
+            logger.log("checkpoint", step=state.step, path=ckpt_path)
+        if eval_fn is not None and (i + 1) % eval_every == 0 and i + 1 < steps:
+            run_eval()
     if ckpt_path:
-        export_inference_checkpoint(ckpt_path, state, config)
-        logger.log("checkpoint", step=state.step, path=ckpt_path)
+        save_all(ckpt_path)
+    if i >= 0:
+        run_eval()
     return state
+
+
+def make_synthetic_eval_fn(config: PillarsConfig, num_scenes: int = 8,
+                           seed: int = 100_000, **scene_kw):
+    """eval_fn for :func:`fit`: detection mAP on a fixed held-out synthetic
+    split.
+
+    The ``Detector`` is built once, on the first call, on the state's
+    device; later calls only load the state's weights into it."""
+    from tpu_pillars_torch.detector import Detector
+    from tpu_pillars_torch.evaluation.pipeline import evaluate_scenes
+
+    rng = np.random.default_rng(seed)
+    scenes = [make_scene(rng, config, **scene_kw) for _ in range(num_scenes)]
+    cache: list = []
+
+    def eval_fn(state: TrainState):
+        weights = state.model.state_dict()
+        if not cache:
+            device = next(state.model.parameters()).device
+            cache.append(Detector(config, weights, device=device))
+        det = cache[0]
+        det.load_state_dict(weights)
+        mAP, _table = evaluate_scenes(det, scenes)
+        return {"mAP": mAP}
+
+    return eval_fn
 
 
 def main(argv=None) -> None:
@@ -110,6 +190,23 @@ def main(argv=None) -> None:
                         "backward pass instead of saving)")
     p.add_argument("--accum", type=int, default=1,
                    help="gradient-accumulation microbatches per step")
+    p.add_argument("--ema", type=float, default=0.0,
+                   help="parameter-EMA decay (e.g. 0.999); 0 disables. "
+                        "Evals run on raw AND EMA weights; checkpoints "
+                        "also export <ckpt>.ema inference weights")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from {out}/ckpt.msgpack if it exists: "
+                        "restores the parameters, statistics, optimizer "
+                        "state and step, and skips the batches the killed "
+                        "run consumed, so the loss curve continues where "
+                        "it left off")
+    p.add_argument("--eval-every", type=int, default=0,
+                   help="if > 0, log detection mAP on a held-out synthetic "
+                        "split every N steps (and at the end)")
+    p.add_argument("--eval-scenes", type=int, default=8)
+    p.add_argument("--tensorboard", action="store_true",
+                   help="also write TensorBoard scalar events to {out}/tb "
+                        "(dependency-free writer, utils/tensorboard.py)")
     p.add_argument("--device", type=str, default=None,
                    help="default: the CUDA card; 'cpu' runs the kernels' "
                         "plain versions")
@@ -127,22 +224,61 @@ def main(argv=None) -> None:
                          f"{args.accum}")
     state = create_train_state(config, tcfg, seed=args.seed,
                                device=args.device)
-    logger = JsonlLogger(os.path.join(args.out, "train.jsonl"))
+    ckpt_path = os.path.join(args.out, "ckpt.msgpack")
+    start = 0
+    if args.resume and os.path.exists(ckpt_path):
+        state = restore_checkpoint(ckpt_path, state, config=config)
+        start = state.step
     device = next(state.model.parameters()).device
-    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
-    logger.log("start", steps=args.steps, batch=args.batch, device=kind,
-               full_size=args.full_size, remat=args.remat, accum=args.accum,
-               prefetch=args.prefetch,
-               params=sum(x.numel() for x in state.model.parameters()))
-    step_fn = make_train_step(config, remat=args.remat,
-                              accum_steps=args.accum)
+
     batches = synthetic_batches(config, tcfg, seed=args.seed)
+    if start:
+        # the stream is a pure function of (seed, config): dropping the
+        # first `start` batches, before any is moved to the device, replays
+        # exactly the data the killed run saw
+        batches = itertools.islice(batches, start, None)
     if args.prefetch > 0:
         batches = device_prefetch(batches, size=args.prefetch, device=device)
-    fit(state, batches, args.steps, step_fn=step_fn, config=config,
-        logger=logger,
-        ckpt_path=os.path.join(args.out, "ckpt.msgpack"))
+    eval_fn = None
+    if args.eval_every > 0:
+        eval_fn = make_synthetic_eval_fn(config, num_scenes=args.eval_scenes,
+                                         seed=args.seed + 100_000)
+
+    logger_ctx = JsonlLogger(os.path.join(args.out, "train.jsonl"),
+                             echo=True)
+    if args.tensorboard:
+        from tpu_pillars_torch.utils.tensorboard import (
+            TeeLogger, TensorBoardWriter,
+        )
+
+        logger_ctx = TeeLogger(logger_ctx, TensorBoardWriter(
+            os.path.join(args.out, "tb")))
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    try:
+        with logger_ctx as logger, GracefulShutdown() as shutdown:
+            logger.log("start", steps=args.steps, batch=args.batch,
+                       resumed_at=start, device=kind,
+                       full_size=args.full_size, remat=args.remat,
+                       accum=args.accum, prefetch=args.prefetch,
+                       params=sum(x.numel()
+                                  for x in state.model.parameters()))
+            step_fn = make_train_step(config, remat=args.remat,
+                                      accum_steps=args.accum)
+            fit(state, batches, steps=max(0, args.steps - start),
+                step_fn=step_fn, config=config, logger=logger,
+                ckpt_path=ckpt_path, eval_fn=eval_fn,
+                eval_every=args.eval_every or 1000, stop=shutdown,
+                heartbeat=Heartbeat(os.path.join(args.out,
+                                                 "heartbeat.json")),
+                guard=NaNGuard(os.path.join(args.out, "diverged.msgpack"),
+                               config=config),
+                ema=maybe_tracker(state.model.parameters(), args.ema))
+    finally:
+        if args.prefetch > 0:
+            # a preempted fit leaves the producer thread waiting on its
+            # queue: closing the generator stops it
+            batches.close()
 
 
 if __name__ == "__main__":

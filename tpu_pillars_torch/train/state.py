@@ -16,6 +16,7 @@ clip_by_global_norm(max_norm), adamw(schedule, weight_decay))`` exactly:
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import List, Optional
@@ -25,6 +26,7 @@ import torch
 
 from tpu_pillars_torch.config import PillarsConfig
 from tpu_pillars_torch.models.pointpillars import PointPillars
+from tpu_pillars_torch.weights import flax_from_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,15 +103,55 @@ class AdamW:
         self.count = count_inc
         return norm
 
+    def state_arrays(self) -> dict:
+        """``{"count": int, "mu": [tensor], "nu": [tensor]}``: the state a
+        resume needs, the live moment tensors in parameter order (optax's
+        ``ScaleByAdamState``; its schedule count equals ``count``)."""
+        return {"count": self.count, "mu": list(self.mu),
+                "nu": list(self.nu)}
+
+    @torch.no_grad()
+    def load_state_arrays(self, arrays: dict) -> None:
+        """Copy :meth:`state_arrays`-shaped moments (tensors or numpy, any
+        device) into this optimizer's, bit for bit, and take its count."""
+        for name in ("mu", "nu"):
+            dst, src = getattr(self, name), arrays[name]
+            if len(src) != len(dst):
+                raise ValueError(f"{name}: {len(src)} moments for "
+                                 f"{len(dst)} parameters")
+            for d, x in zip(dst, src):
+                x = torch.as_tensor(x)
+                if x.shape != d.shape:
+                    raise ValueError(f"{name}: a moment of shape "
+                                     f"{tuple(x.shape)} for a parameter of "
+                                     f"shape {tuple(d.shape)}")
+                d.copy_(x)
+        self.count = int(arrays["count"])
+
 
 @dataclasses.dataclass
 class TrainState:
     """The model (updated in place by the step), its optimizer and the
-    number of optimizer steps taken."""
+    number of optimizer steps taken. ``optimizer`` is None on a view that
+    must not be trained or resumed from (``EmaTracker.swap_into``)."""
 
     model: PointPillars
-    optimizer: AdamW
+    optimizer: Optional[AdamW]
     step: int = 0
+
+    @property
+    def variables(self) -> dict:
+        """The JAX ``TrainState.variables``: {'params', 'batch_stats'} as
+        flax-shaped numpy trees, copied off the device."""
+        return flax_from_params(self.model.state_dict(), self.model.config)
+
+    def clone(self) -> "TrainState":
+        """A copy on the same device that later steps of this state do not
+        touch: parameters, running statistics, moments, count and step."""
+        model = copy.deepcopy(self.model)
+        optimizer = AdamW(model.parameters(), self.optimizer.tcfg)
+        optimizer.load_state_arrays(self.optimizer.state_arrays())
+        return TrainState(model, optimizer, self.step)
 
 
 def init_parameters(model: PointPillars, generator: torch.Generator) -> None:

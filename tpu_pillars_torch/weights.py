@@ -7,7 +7,10 @@ maps whose leaves are msgpack ext type 1: a nested msgpack array
 with a small stdlib-only decoder; :func:`params_from_flax` maps the numpy
 tree (the same tree JAX's ``variables`` hold) onto the port's modules.
 :func:`flax_from_params` and :func:`flax_msgpack_bytes` go the other way,
-byte for byte as flax writes the same tree.
+byte for byte as flax writes the same tree. :func:`flax_param_tree` and
+:func:`param_tensors_from_flax` apply the parameters' map to per-parameter
+tensors such as AdamW's moments (optax's ``mu`` and ``nu`` trees); one
+table, :func:`_leaves`, holds the map.
 """
 
 from __future__ import annotations
@@ -127,101 +130,121 @@ def check_fingerprint(tree: dict, config: PillarsConfig, path: str) -> None:
             f"refusing to restore")
 
 
-def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+def _leaves(config: PillarsConfig):
+    """The one map between the port's state dict and the flax variables:
+    (flax collection, flax path, port name, to_flax, from_flax) for every
+    leaf, the two functions acting on numpy arrays.
+
+    Layouts: flax Conv kernels (kh, kw, in, out) are torch (out, in, kh,
+    kw); flax ConvTranspose kernels are applied spatially flipped relative
+    to torch's ConvTranspose2d (in, out, kh, kw), so they are flipped as
+    well as permuted; the head kernels keep flax's (C, out) columns of its
+    (1, 1, C, out) conv kernel; the PFN kernel keeps flax's (in, out)."""
+    same = (lambda a: a, lambda a: a)
+    c = 3 * config.rpn_up_channels
+    out = [("params", ("pfn", "linear", "kernel"), "pfn.kernel", *same)]
+
+    def bn(path, prefix):
+        out.extend([("params", path + ("scale",), f"{prefix}.weight", *same),
+                    ("params", path + ("bias",), f"{prefix}.bias", *same),
+                    ("batch_stats", path + ("mean",),
+                     f"{prefix}.running_mean", *same),
+                    ("batch_stats", path + ("var",),
+                     f"{prefix}.running_var", *same)])
+
+    bn(("pfn", "bn"), "pfn.bn")
+    for i, n_layers in enumerate(config.rpn_layers):
+        for j in range(n_layers):
+            out.append(("params", ("rpn", f"block{i}", f"conv{j}", "kernel"),
+                        f"rpn.blocks.{i}.convs.{j}",
+                        lambda a: a.transpose(2, 3, 1, 0),
+                        lambda a: a.transpose(3, 2, 0, 1)))
+            bn(("rpn", f"block{i}", f"bn{j}"), f"rpn.blocks.{i}.bns.{j}")
+        out.append(("params", ("rpn", f"up{i}", "deconv", "kernel"),
+                    f"rpn.ups.{i}.weight",
+                    lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1],
+                    lambda a: a[::-1, ::-1].transpose(2, 3, 0, 1)))
+        bn(("rpn", f"up{i}", "bn"), f"rpn.ups.{i}.bn")
+    for name in ("cls", "box", "dir"):
+        out.append(("params", ("head", name, "kernel"), f"head.{name}.weight",
+                    lambda a: a.reshape(1, 1, c, -1),
+                    lambda a: a.reshape(c, -1)))
+        out.append(("params", ("head", name, "bias"), f"head.{name}.bias",
+                    *same))
+    return out
 
 
-def _bn(sd: dict, prefix: str, params: dict, stats: dict) -> None:
-    sd[f"{prefix}.weight"] = _t(params["scale"])
-    sd[f"{prefix}.bias"] = _t(params["bias"])
-    sd[f"{prefix}.running_mean"] = _t(stats["mean"])
-    sd[f"{prefix}.running_var"] = _t(stats["var"])
+def _get(tree: dict, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _sorted_tree(leaves) -> dict:
+    """{path: array} -> nested dict, keys sorted at every level (the order
+    a jitted JAX state carries)."""
+    tree: dict = {}
+    for path, value in leaves.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+
+    def sort(node):
+        if isinstance(node, dict):
+            return {k: sort(node[k]) for k in sorted(node)}
+        return node
+
+    return sort(tree)
+
+
+def _to_torch(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def _to_numpy(t) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _from_flax(variables: dict, config: PillarsConfig, cols) -> dict:
+    return {name: _to_torch(from_flax(np.asarray(_get(variables[col], path))))
+            for col, path, name, _, from_flax in _leaves(config)
+            if col in cols}
+
+
+def _to_flax(named: dict, config: PillarsConfig, col: str) -> dict:
+    return _sorted_tree({
+        path: np.ascontiguousarray(to_flax(_to_numpy(named[name])))
+        for c, path, name, to_flax, _ in _leaves(config) if c == col})
 
 
 def params_from_flax(variables: dict, config: PillarsConfig) -> dict:
     """Flax variables {'params', 'batch_stats'} as numpy -> state dict of
-    ``models.pointpillars.PointPillars``.
-
-    Layouts: flax Conv kernels (kh, kw, in, out) become torch (out, in, kh,
-    kw); flax ConvTranspose kernels are applied spatially flipped relative
-    to torch's ConvTranspose2d (in, out, kh, kw), so they are flipped before
-    the permute. The PFN and head kernels keep flax's (in, out) layout
-    (they run as matmuls). BatchNorm keeps its running stats (eps 1e-3 is
-    the modules')."""
-    p = variables["params"]
-    bs = variables["batch_stats"]
-    sd: dict = {"pfn.kernel": _t(p["pfn"]["linear"]["kernel"])}
-    _bn(sd, "pfn.bn", p["pfn"]["bn"], bs["pfn"]["bn"])
-    for i, n_layers in enumerate(config.rpn_layers):
-        blk, blk_s = p["rpn"][f"block{i}"], bs["rpn"][f"block{i}"]
-        for j in range(n_layers):
-            sd[f"rpn.blocks.{i}.convs.{j}"] = _t(
-                blk[f"conv{j}"]["kernel"]).permute(3, 2, 0, 1).contiguous()
-            _bn(sd, f"rpn.blocks.{i}.bns.{j}", blk[f"bn{j}"], blk_s[f"bn{j}"])
-        up, up_s = p["rpn"][f"up{i}"], bs["rpn"][f"up{i}"]
-        sd[f"rpn.ups.{i}.weight"] = _t(up["deconv"]["kernel"]).flip(
-            0, 1).permute(2, 3, 0, 1).contiguous()
-        _bn(sd, f"rpn.ups.{i}.bn", up["bn"], up_s["bn"])
-    c = 3 * config.rpn_up_channels
-    for name in ("cls", "box", "dir"):
-        k = p["head"][name]["kernel"]
-        sd[f"head.{name}.weight"] = _t(k).reshape(c, -1)
-        sd[f"head.{name}.bias"] = _t(p["head"][name]["bias"])
-    return sd
-
-
-def _np(t) -> np.ndarray:
-    return np.ascontiguousarray(t.detach().cpu().numpy().astype(np.float32))
+    ``models.pointpillars.PointPillars`` (layouts: :func:`_leaves`;
+    BatchNorm keeps its running statistics, eps 1e-3 is the modules')."""
+    return _from_flax(variables, config, ("params", "batch_stats"))
 
 
 def flax_from_params(state_dict: dict, config: PillarsConfig) -> dict:
-    """Inverse of :func:`params_from_flax`: the port's state dict ->
-    flax variables {'params', 'batch_stats'} as numpy, keys sorted at every
-    level (the order a jitted JAX state carries). Conv kernels go back to
-    (kh, kw, in, out); ConvTranspose kernels are permuted back and un-
-    flipped; the head kernels regain their (1, 1, C, out) conv shape."""
-    sd = state_dict
-    params: dict = {}
-    stats: dict = {}
+    """Inverse of :func:`params_from_flax`: the port's state dict -> flax
+    variables {'params', 'batch_stats'} as numpy, keys sorted at every
+    level."""
+    return {col: _to_flax(state_dict, config, col)
+            for col in ("params", "batch_stats")}
 
-    def bn(prefix):
-        return ({"bias": _np(sd[f"{prefix}.bias"]),
-                 "scale": _np(sd[f"{prefix}.weight"])},
-                {"mean": _np(sd[f"{prefix}.running_mean"]),
-                 "var": _np(sd[f"{prefix}.running_var"])})
 
-    c = 3 * config.rpn_up_channels
-    params["head"] = {
-        name: {"bias": _np(sd[f"head.{name}.bias"]),
-               "kernel": _np(sd[f"head.{name}.weight"]).reshape(1, 1, c, -1)}
-        for name in ("box", "cls", "dir")}
-    pfn_bn, pfn_stats = bn("pfn.bn")
-    params["pfn"] = {"bn": pfn_bn, "linear": {"kernel": _np(sd["pfn.kernel"])}}
-    stats["pfn"] = {"bn": pfn_stats}
-    rpn_p: dict = {}
-    rpn_s: dict = {}
-    for i, n_layers in enumerate(config.rpn_layers):
-        blk_p: dict = {}
-        blk_s: dict = {}
-        for j in range(n_layers):
-            blk_p[f"bn{j}"], blk_s[f"bn{j}"] = bn(f"rpn.blocks.{i}.bns.{j}")
-            blk_p[f"conv{j}"] = {"kernel": np.ascontiguousarray(
-                _np(sd[f"rpn.blocks.{i}.convs.{j}"]).transpose(2, 3, 1, 0))}
-        rpn_p[f"block{i}"], rpn_s[f"block{i}"] = blk_p, blk_s
-        up_bn, up_s = bn(f"rpn.ups.{i}.bn")
-        deconv = _np(sd[f"rpn.ups.{i}.weight"]).transpose(2, 3, 0, 1)
-        rpn_p[f"up{i}"] = {"bn": up_bn, "deconv": {
-            "kernel": np.ascontiguousarray(deconv[::-1, ::-1])}}
-        rpn_s[f"up{i}"] = {"bn": up_s}
-    params["rpn"] = {k: rpn_p[k] for k in sorted(rpn_p)}
-    stats["rpn"] = {k: rpn_s[k] for k in sorted(rpn_s)}
+def flax_param_tree(named: dict, config: PillarsConfig) -> dict:
+    """Per-parameter tensors by the port's parameter names (AdamW's
+    moments, an EMA) -> a tree shaped as the flax ``params``, by the map
+    :func:`flax_from_params` applies to the parameters themselves: the
+    layout of optax's ``mu`` and ``nu``."""
+    return _to_flax(named, config, "params")
 
-    def sort(tree):
-        if isinstance(tree, dict):
-            return {k: sort(tree[k]) for k in sorted(tree)}
-        return tree
 
-    return {"params": sort(params), "batch_stats": sort(stats)}
+def param_tensors_from_flax(tree: dict, config: PillarsConfig) -> dict:
+    """Inverse of :func:`flax_param_tree`: a ``params``-shaped tree ->
+    {port parameter name: tensor}."""
+    return _from_flax({"params": tree}, config, ("params",))
 
 
 def _pack(obj, out: list) -> None:
