@@ -8,11 +8,16 @@ imports nothing of JAX. Phases; any failure exits non-zero before the last
 line:
 
   1. Print the card (``nvidia-smi`` name and power limit) and build the 11
-     CUDA kernels of ``tpu_pillars_torch/csrc`` from source.
+     CUDA kernels of ``tpu_pillars_torch/csrc`` from source (K3's source
+     holds three instances: f32 rows to an f32 canvas, f32 rows to a bf16
+     canvas, bf16 rows to a bf16 canvas).
   2. On a batch of 8 lidar-like sweeps of ~100k points at the full
      ``PillarsConfig()``, run each kernel and its plain PyTorch version on
      the card on the same inputs: K1 emit and K3 scatter must be bit-equal
-     (K3 also to ``index_copy_`` and K9, and K3's backward), K2 fused PFN within atol 1e-5 / rtol 1e-5, K4 NMS
+     (K3 also to ``index_copy_`` and K9, and K3's backward; K3's two bf16
+     instances bit-equal to their plain versions and to ``index_copy_``
+     into a zeroed bf16 canvas, the f32 -> bf16 one also to the f32 canvas
+     cast to bf16), K2 fused PFN within atol 1e-5 / rtol 1e-5, K4 NMS
      overlap equal except pairs whose IoU lies within 1e-4 of the
      threshold. K11 stream front end within atol 1e-5 / rtol 1e-5 of its
      plain version and atol 1e-4 / rtol 1e-5 of K3's fused canvas, the
@@ -50,6 +55,15 @@ line:
      sort, the binned pillarizer equals the classic ``PillarBatch``, and K6
      on it then K9 equals the classic canvas bit for bit; K10, K8 and K9
      must have launched.
+     3e. bf16 serving, ``Detector(dtype=torch.bfloat16)`` on the trained
+     checkpoint and the same batch: K1, K2, K3's f32 -> bf16 instance and
+     K4 must have launched (K3's f32 instance not); its wire within the
+     reference's bf16 tolerance of the f32 wire (class-logit median |d| <
+     0.02, box |d| 99th percentile < 0.1); the stage split in f32 and bf16
+     back to back; one classic batch with the plain PillarFeatureNet in
+     bf16 (K3's bf16 -> bf16 instance) held to the same tolerance; phase 5
+     prints the bf16 held-out and TTA mAP beside f32's (finite, no other
+     gate).
   5. Evaluation (run before training): the held-out mAP of the 8 golden
      scenes on the card (``evaluate_scenes``) within 1e-3 of the port's
      scorer on the golden JAX detections; ``predict_tta`` (4 views, WBF)
@@ -79,10 +93,24 @@ line:
      the full file and its ``.ema`` export on the card. Times the
      checkpoint (size, save, restore), the EMA update, the ``NaNGuard``
      snapshot and the eval hook.
+     4c. bf16 training: three bf16 steps from the trained checkpoint on
+     the golden batch given the JAX targets within rtol 2e-2 of the f32
+     losses, the master state f32, the run's checkpoint served by an f32
+     ``Detector``; ``fit`` at batch 8 in bf16 with remat "all" and off
+     (step ms, sweeps/s, peak memory, split; K1, K3's bf16 -> bf16
+     instance and K5 launched, K3's f32 instance not).
+     4d. The documented Lyft run: a fixture of 20 samples at the density
+     of ``scripts/rehearsal_dataset.py``; ``dataset_batches`` timed with GT
+     sampling, object noise and CBGS on 4 workers; ``train.loop.main
+     --data ... --full-size --bf16`` for 6 steps at batch 8 must log finite
+     losses and a held-out mAP; the loader's ms a batch is printed beside
+     the bf16 step's.
 
 The line before the last is a JSON object ``{"kernels": [...]}``, each
 kernel with its launches on the path that runs it (serving: K1-K4, classic
-serving: K6, drop-ins: K8-K10, K11 and K7, training: K5); the last line is
+serving: K6, drop-ins: K8-K10, K11 and K7, training: K5; K3's f32 -> bf16
+instance: bf16 serving, its bf16 -> bf16 instance: bf16 training, each its
+own entry); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -180,6 +208,23 @@ def cuda_ms(fn, iters: int, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return float(np.median(times))
+
+
+def device_ms(fn, iters: int = 5) -> float:
+    """Kernel time of one call of ``fn`` on the card: the profiler's
+    summed device time over ``iters`` calls after a warm-up, divided by
+    ``iters``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return total_us / iters / 1e3
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -340,6 +385,11 @@ def main() -> None:
         fail("K3 backward differs from the plain autograd gradient")
     print("K3 backward: bit-equal to the plain autograd gradient")
     del cot, f1, f2
+    # K3's bf16 instances at the same shapes: f32 rows (bf16 serving) and
+    # bf16 rows (bf16 training) into a bf16 canvas
+    for name, rows_in in (("bev_scatter_f32_bf16", feats),
+                          ("bev_scatter_bf16", feats.to(torch.bfloat16))):
+        rows[name] = bf16_scatter_row(cfg, name, rows_in, pid, mask, canvas)
 
     # K5 on the main path's GT (the first batch-8 training batch), the
     # golden training GT and a crowded 16-per-class set
@@ -444,11 +494,17 @@ def main() -> None:
     if not np.isfinite(out).all() or out[..., 9].sum() == 0:
         fail("the classic batch call gave no finite detections")
     launches["pfn"] = classic["pfn"]
-    stage_split(det_c, points, counts, clouds, "classic")
+    stage_split(det_c, points, counts, clouds, "classic front end")
 
     # ---- phase 3c: the drop-ins at full width, on the serving batch
     launches.update(drop_ins(cfg, det_c, points, counts, w_pfn, b_pfn))
-    del det_c, points, counts
+    del det_c
+    torch.cuda.empty_cache()
+
+    # ---- phase 3e: bf16 serving (K3's f32 -> bf16 instance)
+    launches["bev_scatter_f32_bf16"] = bf16_serving(cfg, points, counts,
+                                                    clouds)
+    del points, counts
     torch.cuda.empty_cache()
 
     # ---- phase 5 (run before training): evaluation on the card
@@ -458,7 +514,7 @@ def main() -> None:
     train_golden(cfg, dev)
     train_launches = {}
     for remat in ("all", "off"):
-        counts_r = train_fit(cfg, dev, remat)
+        counts_r, _ = train_fit(cfg, dev, remat)
         train_launches = counts_r if remat == "all" else train_launches
     # the main path of this slice for K5 is training; K1-K4 keep the
     # serving path's counts
@@ -466,6 +522,19 @@ def main() -> None:
 
     # ---- phase 4b: resume, EMA and the elastic hooks at full width
     resume_phase(cfg, card)
+
+    # ---- phase 4c: bf16 training (K3's bf16 -> bf16 instance)
+    bf16_golden(cfg, dev)
+    bf16_launches, step_ms = {}, {}
+    for remat in ("all", "off"):
+        counts_r, step_ms[remat] = train_fit(cfg, dev, remat,
+                                             dtype=torch.bfloat16)
+        bf16_launches = counts_r if remat == "all" else bf16_launches
+    launches["bev_scatter_bf16"] = bf16_launches["bev_scatter_bf16"]
+    train_launches["bev_scatter_bf16"] = bf16_launches["bev_scatter_bf16"]
+
+    # ---- phase 4d: the documented Lyft run, in bf16
+    lyft_run(cfg, card, step_ms["all"])
 
     replaces = {"emit": "tpu_pillars/ops/emit_pallas.py:113",
                 "fused_pfn": "tpu_pillars/ops/fused_pfn.py:102",
@@ -477,7 +546,12 @@ def main() -> None:
                 "binning": "tpu_pillars/ops/binning_pallas.py:69",
                 "bev_gather": "tpu_pillars/ops/bev_pallas.py:62",
                 "stream_pfn": "tpu_pillars/ops/stream_pfn.py:128",
-                "iou_tiled": "tpu_pillars/ops/iou_pallas.py:88"}
+                "iou_tiled": "tpu_pillars/ops/iou_pallas.py:88",
+                "bev_scatter_f32_bf16": "tpu_pillars/ops/bev_pallas.py:330",
+                "bev_scatter_bf16": "tpu_pillars/ops/bev_pallas.py:330"}
+    # K3's instances live in its one source
+    sources = {"bev_scatter_f32_bf16": "bev_scatter",
+               "bev_scatter_bf16": "bev_scatter"}
     kernels = []
     for name, r in rows.items():
         b_ms, b_by = r["bound"]
@@ -489,7 +563,8 @@ def main() -> None:
               f"{train_launches.get(name, 0)} in the remat-all training run")
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"tpu_pillars_torch/csrc/{name}.cu",
+            "source": f"tpu_pillars_torch/csrc/"
+                      f"{sources.get(name, name)}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
@@ -766,6 +841,26 @@ def golden_targets(g, cfg, dev):
                      for x in t))
 
 
+def golden_batch(g, cfg, dev):
+    """The golden training file's clouds, padded, and its GT, on ``dev``."""
+    import numpy as np
+
+    from tpu_pillars_torch.train.step import batch_to_device
+
+    offs = g["offsets"]
+    B = len(offs) - 1
+    pts = np.full((B, cfg.max_points, cfg.num_input_features), 1e6,
+                  np.float32)
+    npts = np.zeros(B, np.int32)
+    for s in range(B):
+        cloud = g["points"][offs[s]:offs[s + 1]]
+        n = min(len(cloud), cfg.max_points)
+        pts[s, :n] = cloud[:n]
+        npts[s] = n
+    return batch_to_device((pts, npts, g["gt_boxes"], g["gt_classes"],
+                            g["gt_valid"]), dev)
+
+
 def train_golden(cfg, dev):
     """The training step from the trained checkpoint on the golden batch
     against the JAX package: the port's own targets against the JAX ones
@@ -777,24 +872,14 @@ def train_golden(cfg, dev):
 
     from tpu_pillars_torch.ops.assign import make_windowed_assigner
     from tpu_pillars_torch.train.state import TrainConfig, create_train_state
-    from tpu_pillars_torch.train.step import batch_to_device, make_train_step
+    from tpu_pillars_torch.train.step import make_train_step
     from tpu_pillars_torch.weights import (
         flax_from_params, load_flax_msgpack, params_from_flax,
     )
 
     g = np.load(TRAIN_GOLDEN)
-    offs = g["offsets"]
-    B = len(offs) - 1
-    pts = np.full((B, cfg.max_points, cfg.num_input_features), 1e6,
-                  np.float32)
-    npts = np.zeros(B, np.int32)
-    for s in range(B):
-        cloud = g["points"][offs[s]:offs[s + 1]]
-        n = min(len(cloud), cfg.max_points)
-        pts[s, :n] = cloud[:n]
-        npts[s] = n
-    batch = batch_to_device((pts, npts, g["gt_boxes"], g["gt_classes"],
-                             g["gt_valid"]), dev)
+    batch = golden_batch(g, cfg, dev)
+    B = batch.points.shape[0]
     jax_targets = golden_targets(g, cfg, dev)
     own = make_windowed_assigner(cfg)(batch.gt_boxes, batch.gt_classes,
                                       batch.gt_valid)
@@ -849,10 +934,11 @@ def train_golden(cfg, dev):
     torch.cuda.empty_cache()
 
 
-def train_fit(cfg, dev, remat):
-    """``train.loop.fit`` at batch 8 from a seeded random model: median
-    step time, sweeps/s, peak memory, and a synchronised split of extra
-    steps. Returns the launches of the timed steps."""
+def train_fit(cfg, dev, remat, dtype=None):
+    """``train.loop.fit`` at batch 8 from a seeded random model, in f32 or
+    ``dtype``: median step time, sweeps/s, peak memory, and a synchronised
+    split of extra steps. Returns the launches of the timed steps and the
+    median step ms."""
     import numpy as np
     import torch
 
@@ -861,10 +947,12 @@ def train_fit(cfg, dev, remat):
     from tpu_pillars_torch.train.state import TrainConfig, create_train_state
     from tpu_pillars_torch.train.step import batch_to_device, make_train_step
 
+    dtype = dtype or torch.float32
+    label = f"remat {remat}, {str(dtype)[6:]}"
     tcfg = TrainConfig(learning_rate=1e-3, total_steps=TRAIN_STEPS,
-                       batch_size=BATCH)
+                       batch_size=BATCH, compute_dtype=str(dtype)[6:])
     state = create_train_state(cfg, tcfg, seed=SEED)
-    step = make_train_step(cfg, remat=remat)
+    step = make_train_step(cfg, remat=remat, compute_dtype=dtype)
     times, last = [], []
 
     def timed(st, batch):
@@ -883,11 +971,19 @@ def train_fit(cfg, dev, remat):
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    for name in ("emit", "bev_scatter", "assign"):
+    scatter = ("bev_scatter" if dtype == torch.float32
+               else "bev_scatter_bf16")
+    for name in ("emit", scatter, "assign"):
         if launches[name] == 0:
-            fail(f"kernel {name} did not launch during training")
+            fail(f"kernel {name} did not launch during training ({label})")
+    if dtype != torch.float32 and launches["bev_scatter"]:
+        fail(f"K3's f32 instance launched in {label} training")
     if not np.isfinite(last).all():
-        fail(f"training (remat {remat}) gave a non-finite loss: {last}")
+        fail(f"training ({label}) gave a non-finite loss: {last}")
+    if not all(t.dtype == torch.float32
+               for t in list(state.model.state_dict().values())
+               + state.optimizer.mu + state.optimizer.nu):
+        fail(f"training ({label}) left a master tensor that is not f32")
     splits = []
     batches = synthetic_batches(cfg, tcfg, seed=SEED + 1)
     for _ in range(3):
@@ -896,16 +992,302 @@ def train_fit(cfg, dev, remat):
         splits.append(split)
     split = {k: float(np.median([s[k] for s in splits])) for k in splits[0]}
     med = float(np.median(times[1:]))
-    print(f"training, remat {remat}, batch {BATCH}: median step "
+    print(f"training, {label}, batch {BATCH}: median step "
           f"{med:.2f} ms over {len(times) - 1} steps after a warm-up, "
           f"{BATCH / med * 1e3:.2f} sweeps/s, peak memory "
           f"{peak / 2**30:.2f} GiB, losses {[round(x, 4) for x in last]}")
-    print(f"training split, remat {remat} (host clock, synchronised, ms): "
+    print(f"training split, {label} (host clock, synchronised, ms): "
           + json.dumps(split))
-    print(f"launches in the training run (remat {remat}): {launches}")
+    print(f"launches in the training run ({label}): {launches}")
     del state
     torch.cuda.empty_cache()
-    return launches
+    return launches, med
+
+
+def bf16_scatter_row(cfg, name, rows_in, pid, mask, canvas32):
+    """K3's instance ``name`` (rows_in's dtype -> a bf16 canvas) at the
+    serving shapes: bit-equal to its plain version and to ``index_copy_``
+    of the rows cast to bf16 into a zeroed bf16 canvas; from f32 rows also
+    to the f32 canvas cast to bf16. Returns its row of the kernels line."""
+    import torch
+
+    from tpu_pillars_torch.ops import bev
+
+    bf16, i16 = torch.bfloat16, torch.int16
+    args = (rows_in, pid, mask, cfg, bf16)
+    got = bev.scatter_to_bev(*args)
+    want = bev.scatter_to_bev_plain(*args)
+    if got.dtype != bf16 or not torch.equal(got.view(i16), want.view(i16)):
+        fail(f"K3 {name} differs from its plain version")
+    if rows_in.dtype == torch.float32 and not torch.equal(
+            got.view(i16), canvas32.to(bf16).view(i16)):
+        fail(f"K3 {name} differs from the f32 canvas cast to bf16")
+    hw = cfg.grid_h * cfg.grid_w
+    library = index_copy_scatter(rows_in.to(bf16), pid, mask, hw)
+    if not torch.equal(library().reshape(got.shape).view(i16),
+                       got.view(i16)):
+        fail(f"K3 {name}: index_copy_ differs from the kernel")
+    B, P, C = rows_in.shape
+    n_pillars = int(mask.sum())
+    row = dict(
+        err=0.0, ms=cuda_ms(lambda: bev.scatter_to_bev(*args), 20),
+        plain_ms=cuda_ms(lambda: bev.scatter_to_bev_plain(*args), 5),
+        library_ms=cuda_ms(library, 20),
+        # the kept rows read once, ids and mask, the bf16 canvas written
+        bound=bound(n_pillars * C * rows_in.element_size() + B * P * 5
+                    + got.numel() * 2, 0.0))
+    also = (" and to the f32 canvas cast to bf16"
+            if rows_in.dtype == torch.float32 else "")
+    print(f"K3 {name}: bit-equal to its plain version and to index_copy_"
+          f"{also}; {row['ms']:.4f} ms (bound {row['bound'][0]:.4f}); index_copy_ "
+          f"into a zeroed bf16 canvas {row['library_ms']:.4f} ms")
+    return row
+
+
+def wire_gap(got, want):
+    """The reference's bf16 measure of two wires (tests/test_bf16.py):
+    median |d| of the class logits, 99th percentile of the box |d|."""
+    import numpy as np
+
+    dc = (got[0] - want[0]).abs().flatten().cpu().numpy()
+    db = (got[1] - want[1]).abs().flatten().cpu().numpy()
+    return float(np.median(dc)), float(np.quantile(db, 0.99))
+
+
+def bf16_serving(cfg, points, counts, clouds):
+    """Phase 3e: ``Detector(dtype=torch.bfloat16)`` on the trained
+    checkpoint, fused front end, the serving batch: K1, K2, K3's f32 ->
+    bf16 instance and K4 launch (the f32 instance does not); finite
+    detections; its wire against the f32 detector's within the reference's
+    bf16 tolerance (class-logit median |d| < 0.02, box |d| 99th percentile
+    < 0.1); the stage split in f32 and in bf16, back to back; one classic
+    batch with the plain PillarFeatureNet in bf16 (K3's bf16 -> bf16
+    instance), held to the same tolerance against its f32 twin. Returns
+    the f32 -> bf16 instance's launches on the serving batch."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.detector import Detector
+
+    bf16 = torch.bfloat16
+    det32 = Detector.from_checkpoint(cfg, CKPT)
+    det16 = Detector.from_checkpoint(cfg, CKPT, dtype=bf16)
+    _build.reset_launches()
+    out = det16.predict_packed_batch(points, counts)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"launches on the bf16 serving path: {launches}")
+    for name in ("emit", "fused_pfn", "bev_scatter_f32_bf16", "nms_overlap"):
+        if launches[name] == 0:
+            fail(f"kernel {name} did not launch on the bf16 serving path")
+    if launches["bev_scatter"]:
+        fail("K3's f32 instance launched on the bf16 serving path")
+    out = out.cpu().numpy()
+    if out.shape != (BATCH, cfg.max_detections, 10) or \
+            not np.isfinite(out).all() or out[..., 9].sum() == 0:
+        fail(f"the bf16 batch call gave no finite detections {out.shape}")
+    with torch.no_grad():
+        if det16.canvas(points, counts).dtype != bf16:
+            fail("the bf16 detector's canvas is not bf16")
+        gap = wire_gap(det16._stage1(points, counts),
+                       det32._stage1(points, counts))
+    print(f"bf16 wire against the f32 wire (fused, batch {BATCH}): class "
+          f"logit median |d| {gap[0]:.3e} (limit 0.02), box |d| 99th "
+          f"percentile {gap[1]:.3e} (limit 0.1); "
+          f"{int(out[..., 9].sum())} detections")
+    if not (gap[0] < 0.02 and gap[1] < 0.1):
+        fail(f"the bf16 wire is off the f32 wire by {gap}")
+    stage_split(det32, points, counts, clouds, "fused front end, f32")
+    stage_split(det16, points, counts, clouds,
+                "fused front end, bf16 canvas, RPN and head")
+    # the RPN and head alone: CUDA events over back-to-back calls (the
+    # host's launches included) and the profiler's kernel time (the card
+    # alone)
+    with torch.no_grad():
+        for label, det in (("f32", det32), ("bf16", det16)):
+            canvas = det.canvas(points, counts)
+            ev = cuda_ms(lambda: det.wire(canvas), 5)
+            dev_ms = device_ms(lambda: det.wire(canvas))
+            print(f"RPN + head ({label}), batch {BATCH}: {ev:.3f} ms "
+                  f"(CUDA events, median of 5 runs of 5 calls), "
+                  f"{dev_ms:.3f} ms of kernels (profiler)")
+    del det32, det16, canvas
+    torch.cuda.empty_cache()
+
+    plain32 = Detector.from_checkpoint(cfg, CKPT, use_pallas_pfn=False)
+    plain16 = Detector.from_checkpoint(cfg, CKPT, use_pallas_pfn=False,
+                                       dtype=bf16)
+    _build.reset_launches()
+    out = plain16.predict_packed_batch(points, counts)
+    torch.cuda.synchronize()
+    classic = dict(_build.LAUNCHES)
+    for name in ("emit", "bev_scatter_bf16", "nms_overlap"):
+        if classic[name] == 0:
+            fail(f"kernel {name} did not launch on the classic bf16 path")
+    if classic["pfn"] or classic["fused_pfn"] or classic["bev_scatter"]:
+        fail(f"the plain-PFN bf16 path launched {classic}")
+    out = out.cpu().numpy()
+    if not np.isfinite(out).all() or out[..., 9].sum() == 0:
+        fail("the classic bf16 batch call gave no finite detections")
+    with torch.no_grad():
+        gap = wire_gap(plain16._stage1(points, counts),
+                       plain32._stage1(points, counts))
+    print(f"classic bf16 batch (plain PillarFeatureNet in bf16): launches "
+          f"{classic}; wire against its f32 twin: class median |d| "
+          f"{gap[0]:.3e}, box |d| 99th percentile {gap[1]:.3e}")
+    if not (gap[0] < 0.02 and gap[1] < 0.1):
+        fail(f"the classic bf16 wire is off the f32 wire by {gap}")
+    stage_split(plain16, points, counts, clouds,
+                "classic front end, plain PFN, all bf16")
+    del plain32, plain16
+    torch.cuda.empty_cache()
+    return launches["bev_scatter_f32_bf16"]
+
+
+def bf16_golden(cfg, dev):
+    """Phase 4c's gate: three bf16 steps from the trained checkpoint on the
+    golden batch, given the JAX targets, track the f32 steps (the golden
+    JAX losses, which the f32 port reproduces at rtol 2e-3) at rtol 2e-2,
+    the bound of tests/test_fused_train.py; the master state stays f32;
+    the bf16 run's full checkpoint is served by an f32 ``Detector``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch.detector import Detector
+    from tpu_pillars_torch.train.checkpoint import save_checkpoint
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+    from tpu_pillars_torch.train.step import make_train_step
+    from tpu_pillars_torch.weights import load_flax_msgpack, params_from_flax
+
+    g = np.load(TRAIN_GOLDEN)
+    batch = golden_batch(g, cfg, dev)
+    B = batch.points.shape[0]
+    targets = golden_targets(g, cfg, dev)
+    tree = load_flax_msgpack(CKPT)
+    variables = {"params": tree["params"], "batch_stats": tree["batch_stats"]}
+    tcfg = TrainConfig(learning_rate=float(g["learning_rate"]),
+                       total_steps=int(g["total_steps"]), batch_size=B,
+                       compute_dtype="bfloat16")
+    state = create_train_state(cfg, tcfg, state_dict=params_from_flax(
+        variables, cfg))
+    step = make_train_step(cfg, assigner=lambda *gt: targets,
+                           compute_dtype=torch.bfloat16)
+    worst = 0.0
+    for i in range(len(g["losses"])):
+        state, losses = step(state, batch)
+        got = [float(x) for x in losses]
+        want = g["losses"][i]
+        rel = abs(got[0] - want[0]) / abs(want[0])
+        worst = max(worst, rel)
+        print(f"bf16 golden train step {i + 1}: loss {got[0]:.6f} (f32 "
+              f"{want[0]:.6f}, relative {rel:.3e}), num_pos {got[4]:.0f} "
+              f"({want[4]:.0f})")
+        if not np.isfinite(got).all() or rel > 2e-2:
+            fail(f"bf16 golden train step {i + 1}: loss {got[0]} vs f32 "
+                 f"{want[0]} (rtol 2e-2)")
+    masters = (list(state.model.state_dict().values())
+               + state.optimizer.mu + state.optimizer.nu)
+    if not all(t.dtype == torch.float32 for t in masters):
+        fail("bf16 training left a master tensor that is not f32")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bf16.msgpack")
+        save_checkpoint(path, state, config=cfg)
+        det = Detector.from_checkpoint(cfg, path)
+        out = det.predict_packed_batch(batch.points,
+                                       batch.num_points).cpu().numpy()
+        if det.dtype != torch.float32 or not np.isfinite(out).all():
+            fail("an f32 Detector did not serve the bf16 run's checkpoint")
+    print(f"bf16 golden training: 3 steps within {worst:.3e} of the f32 "
+          f"losses (rtol 2e-2); {len(masters)} master tensors f32; the "
+          f"checkpoint served in f32 ({int(out[..., 9].sum())} detections)")
+    del state, det
+    torch.cuda.empty_cache()
+
+
+def lyft_run(cfg, card, bf16_step_ms):
+    """Phase 4d, the JAX package's documented training run (docs/DATA.md)
+    at full width in bf16 on a Lyft-format fixture of 20 samples at the
+    density of scripts/rehearsal_dataset.py (25 objects x 300 points,
+    25,000 clutter points): ``train.loop.main --data ... --full-size --bf16
+    --gt-sample 8 --object-noise --cbgs 1.0 --workers 4 --val-samples 8
+    --eval-every 6 --steps 6 --batch 8``, whose ``train.jsonl`` must hold
+    finite losses and an mAP, with K1, K3's bf16 -> bf16 instance and K5
+    launched; before it, the batches that command line streams
+    (``train.loop.dataset_stream``: GT sampling 8 a class, object noise,
+    CBGS, 4 workers) timed in ms per batch of 8."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.data.fixture import build_fixture
+    from tpu_pillars_torch.train import loop
+    from tpu_pillars_torch.train.state import TrainConfig
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        json_dir = build_fixture(os.path.join(tmp, "lyft"), cfg,
+                                 num_scenes=4, samples_per_scene=5,
+                                 sweeps_per_sample=1, seed=SEED,
+                                 num_objects=25, points_per_object=300,
+                                 clutter=25_000)
+        argv = ["--data", json_dir, "--full-size", "--bf16", "--gt-sample",
+                "8", "--object-noise", "--cbgs", "1.0", "--workers", "4",
+                "--val-samples", "8", "--eval-every", "6", "--steps", "6",
+                "--batch", str(BATCH), "--out", os.path.join(tmp, "run")]
+        t0 = time.perf_counter()
+        stream, _ = loop.dataset_stream(loop.parse_args(argv), cfg,
+                                        TrainConfig(batch_size=BATCH))
+        setup_ms = (time.perf_counter() - t0) * 1e3
+        times, npts, ngt = [], [], []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            b = next(stream)
+            times.append((time.perf_counter() - t0) * 1e3)
+            npts.append(int(b[1].sum()))
+            ngt.append(int(b[4].sum()))
+        stream.close()
+        loader_ms = float(np.median(times[1:]))
+        print(f"loader (dataset_batches, GT sampling 8 a class, object "
+              f"noise, CBGS, 4 workers): {loader_ms:.1f} ms a batch of "
+              f"{BATCH} (median of 5 after the first, {times[0]:.1f} ms); "
+              f"{np.mean(npts) / BATCH:.0f} points and "
+              f"{np.mean(ngt) / BATCH:.1f} GT a sample; set-up (dataset "
+              f"index, GT database, CBGS) {setup_ms:.0f} ms")
+
+        _build.reset_launches()
+        loop.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        events = [json.loads(x)
+                  for x in open(os.path.join(tmp, "run", "train.jsonl"))]
+    steps = [e for e in events if e["event"] == "train_step"]
+    evals = [e for e in events if e["event"] == "eval"]
+    if not steps or not all(np.isfinite([e[k] for k in ("loss", "cls", "loc",
+                                                        "dir")]).all()
+                            for e in steps):
+        fail(f"the Lyft run logged no finite losses: {steps}")
+    if len(evals) != 1 or not np.isfinite(evals[0]["mAP"]):
+        fail(f"the Lyft run logged no finite mAP: {evals}")
+    for name in ("emit", "bev_scatter_bf16", "assign"):
+        if launches[name] == 0:
+            fail(f"kernel {name} did not launch in the Lyft run")
+    print(f"Lyft run ({card}): main --data --full-size --bf16 --gt-sample 8 "
+          f"--object-noise --cbgs 1.0 --workers 4, 6 steps at batch "
+          f"{BATCH}: loss {steps[-1]['loss']:.4f}, "
+          f"{steps[-1]['steps_per_s']} steps/s (first step and loader "
+          f"included), held-out mAP {evals[0]['mAP']:.6f} on 8 samples; "
+          f"launches {launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    verdict = ("the loader is slower, the card waits"
+               if loader_ms > bf16_step_ms else "the loader keeps up")
+    print(f"host against card: the loader takes {loader_ms:.1f} ms a batch "
+          f"of {BATCH}, the bf16 step (remat all) {bf16_step_ms:.2f} ms: "
+          f"{verdict} (ratio {loader_ms / bf16_step_ms:.2f})")
 
 
 class EventList:
@@ -1125,14 +1507,16 @@ def resume_phase(cfg, card):
 
 def index_copy_scatter(feats, pid, mask, hw):
     """The yardstick of K3 and K9: one ``index_copy_`` of the valid pillar
-    rows into a zeroed flat canvas (returns the call, to be timed)."""
+    rows into a zeroed flat canvas of the rows' dtype (returns the call, to
+    be timed)."""
     import torch
 
     B, _, C = feats.shape
     flat_idx = (pid.long() + torch.arange(B, device=feats.device)[:, None]
                 * hw)[mask]
     src = feats[mask]
-    return lambda: torch.zeros((B * hw, C), device=feats.device).index_copy_(
+    return lambda: torch.zeros((B * hw, C), dtype=feats.dtype,
+                               device=feats.device).index_copy_(
         0, flat_idx, src)
 
 
@@ -1374,6 +1758,7 @@ def evaluation(cfg, golden):
     import tempfile
 
     import numpy as np
+    import torch
 
     from tpu_pillars_torch.data.fixture import build_fixture
     from tpu_pillars_torch.data.lyft import LyftDataset
@@ -1429,6 +1814,20 @@ def evaluation(cfg, golden):
           f"detections; worst |d score| {worst[0]:.3e}, |d centre| "
           f"{worst[1]:.3e} m, |d yaw| {worst[2]:.3e} rad; held-out mAP "
           f"{m_tta:.6f} (the second scorer: {m_alt:.6f})")
+
+    # phase 3e's accuracy: the same scenes served in bf16
+    det16 = Detector.from_checkpoint(cfg, CKPT, dtype=torch.bfloat16)
+    m16, _ = evaluate_scenes(det16, scenes)
+    pred16 = []
+    for s, sc in enumerate(scenes):
+        pred16 += [EvalBox.from_box3d(b) for b in predict_tta(
+            det16, sc.points, modes=MODES, merge="wbf", token=f"scene{s}")]
+    m16_tta, _ = lyft_map(gt, pred16, cfg.class_names)
+    print(f"bf16 serving: held-out mAP {m16:.6f} (f32 {m_card:.6f}), TTA "
+          f"mAP {m16_tta:.6f} (f32 {m_tta:.6f}), {len(pred16)} TTA boxes")
+    if not np.isfinite([m16, m16_tta]).all():
+        fail(f"bf16 held-out mAP {m16} / TTA {m16_tta} not finite")
+    del det16
 
     with tempfile.TemporaryDirectory() as root:
         ds = LyftDataset(build_fixture(root, cfg, num_scenes=2,
@@ -1509,7 +1908,7 @@ def golden_check(det, golden, label):
           f"|d centre| {worst[1]:.3e} m, |d yaw| {worst[2]:.3e} rad")
 
 
-def stage_split(det, points, counts, clouds, label="fused"):
+def stage_split(det, points, counts, clouds, label="fused front end"):
     """Host-clock split of one batch-8 call (synchronised after each stage),
     median of 5, and the end-to-end rate from numpy clouds to host boxes."""
     import numpy as np
@@ -1543,7 +1942,7 @@ def stage_split(det, points, counts, clouds, label="fused"):
                                   total)):
             split[key].append(v)
     med = {k: float(np.median(v[1:])) for k, v in split.items()}
-    print(f"stage split ({label} front end), batch {len(clouds)} (host "
+    print(f"stage split ({label}), batch {len(clouds)} (host "
           f"clock, ms): " + json.dumps(med))
     print(f"end to end ({label}): {len(clouds) / med['total_ms'] * 1e3:.2f} "
           f"sweeps/s at batch {len(clouds)}")

@@ -34,10 +34,16 @@ training steps on the card against the same steps on the CPU (loss rtol
 1e-3, equal positives); a full-config full checkpoint restored onto the
 card bit for bit, and EMA updates on the card equal to the same updates on
 the CPU. K3, K4 and K11 also write every element of memory
-that held NaN / 0xFF before the call; K11 keeps exactly the runs of its
-pillar budget (tests/stream_budget_cases.py, and a full-config batch); K5
-is also held on a GT far from every anchor, GT on its tiles' edges and 64
-GT per class, with every case that no positive IoU decides exact; K6 is
+that held NaN / 0xFF before the call; K3's bf16 instances (f32 rows and
+bf16 rows into a bf16 canvas) bit for bit against their plain versions at
+the tiny and the full serving shapes, on 16-byte packs and the scalar
+path, the f32 -> bf16 one also against the f32 canvas cast to bf16, the
+bf16 backward equal to the plain gradient (as the f32 one), and other
+type pairs refused; ``Detector(dtype=torch.bfloat16)``'s wire on the card
+within the reference's bf16 tolerance of the CPU's and of the f32 wire;
+K11 keeps exactly the runs of its pillar budget
+(tests/stream_budget_cases.py, and a full-config batch); K5 is also held
+on a GT far from every anchor, GT on its tiles' edges and 64 GT per class, with every case that no positive IoU decides exact; K6 is
 also held at C = 96 and 256, D = 1, N = 16 and 40, a ragged pillar count,
 more pillars than the grid has warps and a pillar whose only valid slot is
 the last, into memory that held NaN; K1, K2, K5, K6, K7, K8 and K11
@@ -345,6 +351,114 @@ def test_scatter_kernel_writes_every_element(dev, b, c):
         assert not got[1].any()
     assert torch.equal(got.reshape(b, hw, c)[0, hw - 1],
                        feats[0, int(mask[0].sum()) - 1])
+
+
+# K3's bf16 instances: (row dtype, canvas dtype, launch counter)
+BF16_SCATTERS = {
+    "f32_bf16": (torch.float32, torch.bfloat16, "bev_scatter_f32_bf16"),
+    "bf16_bf16": (torch.bfloat16, torch.bfloat16, "bev_scatter_bf16"),
+}
+
+
+def _check_bf16_scatter(dev, cfg, inst, b, c, pid, mask, seed):
+    rows, out, counter = BF16_SCATTERS[inst]
+    feats = torch.randn((b, cfg.max_pillars, c), device=dev,
+                        generator=torch.Generator(dev).manual_seed(seed)
+                        ).to(rows)
+    shape = (b, cfg.grid_h, cfg.grid_w, c)
+    # 0xFFFF is a bf16 NaN: an element the kernel skips reads NaN
+    _poison(shape, torch.int16, -1, dev)
+    before = dict(_build.LAUNCHES)
+    got = bev.scatter_to_bev(feats, pid, mask, cfg, out)
+    assert _build.LAUNCHES[counter] == before[counter] + 1
+    assert {k: v for k, v in _build.LAUNCHES.items() if k != counter} == \
+        {k: v for k, v in before.items() if k != counter}
+    want = bev.scatter_to_bev_plain(feats, pid, mask, cfg, out)
+    torch.cuda.synchronize()
+    assert got.dtype == out and got.shape == shape
+    assert not got.isnan().any()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    if rows == torch.float32:      # the f32 canvas cast once, bit for bit
+        f32 = bev.scatter_to_bev(feats, pid, mask, cfg)
+        assert torch.equal(got.view(torch.int16),
+                           f32.to(out).view(torch.int16))
+    return got
+
+
+@pytest.mark.parametrize("inst", sorted(BF16_SCATTERS))
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("c", [64, 30])       # 16-byte packs, scalar path
+def test_scatter_bf16_instances_write_every_element(dev, inst, b, c):
+    """K3's bf16 canvases into memory that held NaN (~0.01 s a case): one
+    launch per call counted under the instance's own name, bit-equal to the
+    plain version and, from f32 rows, to the f32 canvas cast to bf16; the
+    ids as in test_scatter_kernel_writes_every_element."""
+    cfg = CFG
+    hw = cfg.grid_h * cfg.grid_w
+    pid, mask = _ascending_ids(np.random.default_rng(b * 100 + c + 7), b,
+                               cfg.max_pillars, hw, 64)
+    pid, mask = torch.from_numpy(pid).to(dev), torch.from_numpy(mask).to(dev)
+    got = _check_bf16_scatter(dev, cfg, inst, b, c, pid, mask, c)
+    if b > 1:
+        assert not got[1].any()
+
+
+@pytest.mark.parametrize("inst", sorted(BF16_SCATTERS))
+def test_scatter_bf16_instances_at_full_shapes(dev, inst):
+    """The serving shapes, PillarsConfig() at batch 8 (8 x 12,000 x 64 rows
+    -> 8 x 400 x 400 x 64; ~0.01 s a case once the emit inputs exist):
+    the ids of two uniform sweeps of 100,000 points through the emit
+    table."""
+    cfg, gid, pts = _emit_inputs("full_config", dev)
+    _, meta = emit.emit_table(gid, pts, cfg.max_points_per_pillar,
+                              cfg.max_pillars, cfg.grid_h * cfg.grid_w)
+    m = meta.reshape(-1, 8, cfg.max_pillars)
+    pid, mask = m[:, 1].to(torch.int32), m[:, 0] > 0
+    pid, mask = pid.repeat(4, 1), mask.repeat(4, 1)        # batch 8
+    assert pid.shape == (8, cfg.max_pillars) and int(mask.sum()) > 0
+    _check_bf16_scatter(dev, cfg, inst, 8, cfg.pfn_channels, pid, mask, 3)
+
+
+def test_scatter_bf16_backward_bit_equal(dev):
+    """K3's bf16 training scatter: the forward (the bf16 -> bf16 instance)
+    and its row-gather backward equal to the plain autograd gradient of
+    the plain scatter, the gradient in bf16 (~3 s, most of it the emit
+    inputs)."""
+    cfg, gid, pts = _sorted_centered("random", dev)
+    _, meta = emit.emit_table(gid, pts, cfg.max_points_per_pillar,
+                              cfg.max_pillars, cfg.grid_h * cfg.grid_w)
+    m = meta.reshape(-1, 8, cfg.max_pillars)
+    pid, mask = m[:, 1].to(torch.int32), m[:, 0] > 0
+    gen = torch.Generator(dev).manual_seed(2)
+    feats = torch.randn((pid.shape[0], cfg.max_pillars, 64), device=dev,
+                        generator=gen).to(torch.bfloat16)
+    cot = torch.randn((pid.shape[0], cfg.grid_h, cfg.grid_w, 64), device=dev,
+                      generator=gen).to(torch.bfloat16)
+    f1 = feats.clone().requires_grad_(True)
+    f2 = feats.clone().requires_grad_(True)
+    before = _build.LAUNCHES["bev_scatter_bf16"]
+    y1 = bev.scatter_to_bev_diff(f1, pid, mask, cfg, torch.bfloat16)
+    assert _build.LAUNCHES["bev_scatter_bf16"] == before + 1
+    y1.backward(cot)
+    bev.scatter_to_bev_plain(f2, pid, mask, cfg, torch.bfloat16
+                             ).backward(cot)
+    torch.cuda.synchronize()
+    assert f1.grad.dtype == torch.bfloat16
+    # equal values, as the f32 case: a masked row's cotangent is the
+    # gathered row times 0, which may be -0.0 where autograd gives +0.0
+    assert torch.equal(f1.grad, f2.grad)
+
+
+def test_scatter_refuses_other_dtype_pairs_on_the_card(dev):
+    feats = torch.zeros((1, 4, 8), device=dev)
+    pid = torch.arange(4, dtype=torch.int32, device=dev)[None]
+    mask = torch.ones((1, 4), dtype=torch.bool, device=dev)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(TypeError):
+        bev.scatter_to_bev(feats.half(), pid, mask, CFG, torch.bfloat16)
+    with pytest.raises(TypeError):
+        bev.scatter_to_bev(feats.to(torch.bfloat16), pid, mask, CFG)
+    assert _build.LAUNCHES == before
 
 
 def _boxes(rng, batch, n, span):
@@ -863,6 +977,38 @@ def test_detector_on_card_matches_cpu(dev):
     np.testing.assert_allclose(got[..., :6], want[..., :6], atol=5e-3)
     dyaw = (got[..., 6] - want[..., 6] + np.pi) % (2 * np.pi) - np.pi
     assert np.abs(dyaw).max() < 5e-3
+
+
+@pytest.mark.parametrize("kw", [{}, {"use_pallas_pfn": False}])
+def test_bf16_detector_wire_on_card(dev, kw):
+    """``Detector(dtype=torch.bfloat16)`` on the card (~0.3 s a case): its f32
+    wire within the reference's bf16 tolerance (tests/test_bf16.py: class
+    logits median |d| < 0.02, box |d| 99th percentile < 0.1) of the same
+    detector on the CPU and of the f32 detector on the card; the fused
+    front end writes the bf16 canvas through the f32 -> bf16 instance of
+    K3, the plain PillarFeatureNet through the bf16 -> bf16 one."""
+    sd = _random_state_dict(CFG, 5)
+    pts, ns = _cloud(np.random.default_rng(2), [3000, 1500])
+    det = Detector(CFG, sd, dtype=torch.bfloat16, **kw)
+    p, n = torch.from_numpy(pts).to(dev), torch.from_numpy(ns).to(dev)
+    _build.reset_launches()
+    got = det._stage1(p, n)
+    torch.cuda.synchronize()
+    counter = ("bev_scatter_f32_bf16" if det.fused_frontend
+               else "bev_scatter_bf16")
+    assert _build.LAUNCHES[counter] == 1 and _build.LAUNCHES["bev_scatter"] \
+        == 0, _build.LAUNCHES
+    cpu = Detector(CFG, sd, device="cpu", dtype=torch.bfloat16, **kw)._stage1(
+        torch.from_numpy(pts), torch.from_numpy(ns))
+    f32 = Detector(CFG, sd, **kw)._stage1(p, n)
+    for g, w, r in zip(got, cpu, f32):
+        assert g.dtype == torch.float32
+        for ref in (w, r.cpu()):
+            d = (g.cpu() - ref).abs()
+            assert float(d.median()) < 0.02
+            assert float(torch.quantile(d.flatten()[:1_000_000], 0.99)) < 0.1
+    out = det.predict_packed_batch(pts, ns).cpu().numpy()
+    assert np.isfinite(out).all()
 
 
 @pytest.mark.parametrize("use_pallas_pfn", [True, False])

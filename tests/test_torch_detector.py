@@ -144,7 +144,8 @@ def test_port_imports_no_jax():
                    "data/lyft.py", "data/fixture.py", "data/submission.py",
                    "reference_cpu/postprocess.py", "train/elastic.py",
                    "train/ema.py", "utils/logging.py",
-                   "utils/tensorboard.py"):
+                   "utils/tensorboard.py", "train/data.py",
+                   "data/augment.py", "data/gt_sampler.py"):
         assert os.path.join("tpu_pillars_torch", module) in rel, module
     for path in files:
         for mod in _imports(path):

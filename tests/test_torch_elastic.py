@@ -15,7 +15,7 @@
   finite state, not the poisoned one; ``check_heartbeat``'s three states;
   ``main`` preempted by SIGTERM exits, stops its prefetch thread, and
   ``--resume`` finishes on the unbroken run's weights; ``main`` refuses
-  ``--bf16`` and ``--dp``.
+  ``--dp`` (``--bf16`` trains: tests/test_torch_bf16.py).
 * The TensorBoard writer writes the JAX writer's bytes for the same events
   (wall time pinned), its CRC-32C holds the published check values, and
   the JSONL logger writes the JAX logger's lines.
@@ -304,10 +304,10 @@ def test_main_preempted_then_resumed(tmp_path, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("flags", [["--bf16"], ["--dp", "2"]])
+@pytest.mark.parametrize("flags", [["--dp", "2"]])
 def test_main_refuses_unported_flags(flags, tmp_path):
-    """bf16 training and data parallelism are not ported: ``main`` refuses
-    them before it builds anything."""
+    """Data parallelism is not ported: ``main`` refuses it before it builds
+    anything."""
     with pytest.raises(SystemExit):
         loop.main(["--device", "cpu", "--out", str(tmp_path)] + flags)
     assert not os.listdir(tmp_path)

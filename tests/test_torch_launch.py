@@ -8,11 +8,12 @@
   library that records where each entry point was called: any device but
   the CPU takes the kernel's path, so the wrappers run to their launches
   without a card. ``tests/test_torch_cuda.py`` launches on ``cuda:1``
-  where a machine has two cards. K1, K2, K5, K6, K7, K8 and K11, one
-  launch each and no other torch op than their ``torch.empty`` allocations
-  (a dispatch mode records every op), return their documented outputs
-  there; K7 passes views of other layouts to its kernel as they are, with
-  their strides.
+  where a machine has two cards. K3's bf16 instances launch their own
+  entry points and count under their own names. K1, K2, K5, K6, K7, K8
+  and K11, one launch each and no other torch op than their
+  ``torch.empty`` allocations (a dispatch mode records every op), return
+  their documented outputs there; K7 passes views of other layouts to its
+  kernel as they are, with their strides.
 * K3's precondition: the ids that each caller of the BEV scatter passes
   (the fused and the classic serving front end, a training step) satisfy
   ``where(mask, pid, H*W)`` ascending, valid ids unique and in [0, H*W),
@@ -171,6 +172,27 @@ def test_wrapper_launches_under_its_inputs_device(card, kernel):
     assert not card.current
 
 
+@pytest.mark.parametrize("rows,symbol", [
+    (torch.float32, "bev_scatter_f32_bf16"),
+    (torch.bfloat16, "bev_scatter_bf16")])
+def test_scatter_bf16_instances_launch_under_their_inputs_device(
+        card, rows, symbol):
+    """K3's bf16 canvases: one guarded launch of the instance's own entry
+    point, counted under its own name and no other, returning a bf16
+    canvas."""
+    before = dict(_build.LAUNCHES)
+    out = bev.scatter_to_bev(_m((B, P, C), rows), _m((B, P), torch.int32),
+                             _m((B, P), torch.bool), CFG, torch.bfloat16)
+    assert [c[:3] for c in card.calls] == [("bev_scatter", symbol, META)]
+    assert card.calls[0][3] == _FakeCard.stream_of(META)
+    after = dict(_build.LAUNCHES)
+    assert after[symbol] == before[symbol] + 1
+    assert {k: v for k, v in after.items() if k != symbol} == \
+        {k: v for k, v in before.items() if k != symbol}
+    assert out.dtype == torch.bfloat16
+    assert tuple(out.shape) == (B, CFG.grid_h, CFG.grid_w, C)
+
+
 # the outputs each one-launch wrapper documents: (shape, dtype) per output
 OUTPUTS = {
     "emit": [((B * P, 4 * 4), torch.float32), ((B * 8, P), torch.float32)],
@@ -282,9 +304,9 @@ def recorded_scatters(monkeypatch):
     seen = []
     plain = bev.scatter_to_bev
 
-    def recording(feats, pid, mask, config):
+    def recording(feats, pid, mask, config, *out_dtype):
         seen.append((pid.clone(), mask.clone(), config))
-        return plain(feats, pid, mask, config)
+        return plain(feats, pid, mask, config, *out_dtype)
 
     monkeypatch.setattr(bev, "scatter_to_bev", recording)
     monkeypatch.setattr(tdet, "scatter_to_bev", recording)

@@ -18,7 +18,8 @@ value. Kernels allocate nothing: the Python wrappers allocate outputs with
 
 ``LAUNCHES`` counts each kernel's launches. :func:`launch` adds one right
 after a kernel launched, and nowhere else (a sidecar launch adds none) — so
-a run can show that its main path went through the kernels.
+a run can show that its main path went through the kernels. K3's bf16
+instances (``INSTANCES``) count under their own names.
 """
 
 from __future__ import annotations
@@ -44,7 +45,10 @@ EXTRA_FLAGS = {name: ["--fmad=false"] for name in (
 
 KERNELS = ("emit", "fused_pfn", "bev_scatter", "nms_overlap", "assign", "pfn",
            "radix_sort", "binning", "bev_gather", "stream_pfn", "iou_tiled")
-LAUNCHES = {name: 0 for name in KERNELS}
+# K3's instances with a bf16 canvas (csrc/bev_scatter.cu), counted apart
+# from its f32 one, which counts as "bev_scatter"
+INSTANCES = ("bev_scatter_f32_bf16", "bev_scatter_bf16")
+LAUNCHES = {name: 0 for name in KERNELS + INSTANCES}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -138,14 +142,15 @@ def function(name: str, symbol: str, sig: str):
 
 
 def launch(kernel: str, symbol: str, sig: str, *args,
-           count: bool = True) -> None:
+           count=True) -> None:
     """Launch C entry ``symbol`` of kernel ``kernel`` (``sig`` as for
     :func:`function`) on ``args``: a tensor passes its data pointer, None a
     null pointer, anything else goes as it is. Every tensor must lie on one
     device; the launch runs with that device current (under
     ``torch.cuda.device`` unless it already is), on its current stream.
-    Raises on a launch error; then adds one to ``LAUNCHES[kernel]`` unless
-    ``count`` is false (a sidecar)."""
+    Raises on a launch error; then adds one to ``LAUNCHES[kernel]``, or to
+    ``LAUNCHES[count]`` when ``count`` names an instance, unless ``count``
+    is false (a sidecar)."""
     import torch
 
     # one pass over the arguments: this runs on every launch, and the host
@@ -177,4 +182,4 @@ def launch(kernel: str, symbol: str, sig: str, *args,
     if err != 0:
         raise RuntimeError(f"{symbol}: CUDA error {err} at launch")
     if count:
-        LAUNCHES[kernel] += 1
+        LAUNCHES[kernel if count is True else count] += 1

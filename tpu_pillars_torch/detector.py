@@ -13,11 +13,14 @@ package chooses them (:func:`use_fused_frontend`):
   the decorated (B*P, N, D) tensor — K6 (``use_pallas_pfn=True``) or the
   plain module — and K3.
 
-Then the RPN and the wire head. Stage 2 (wire -> detections): sigmoid,
-per-class threshold and top-k, decode, class-aware rotated NMS on the K4
-overlap matrix. :func:`build_canvas_fn`, :func:`build_model_fn`,
-:func:`build_postprocess_fn` and :func:`build_forward_fn` are the stages as
-plain functions over a loaded ``PointPillars``; ``Detector`` runs stage 1
+Then the RPN and the wire head, in ``dtype`` (float32 by default, or
+bfloat16 with the JAX package's cast points: the front end stays f32 up to
+K3, which writes the bf16 canvas; the wire stays f32). Stage 2 (wire ->
+detections): sigmoid, per-class threshold and top-k, decode, class-aware
+rotated NMS on the K4 overlap matrix. :func:`build_canvas_fn`,
+:func:`build_model_fn`, :func:`build_postprocess_fn` and
+:func:`build_forward_fn` are the stages as plain functions over a loaded
+``PointPillars``; ``Detector`` runs stage 1
 through :func:`build_model_fn` and stage 2 through
 :func:`build_postprocess_fn`.
 Everything runs on ``device``; the only host transfers are the padded cloud
@@ -80,11 +83,14 @@ def use_fused_frontend(config: PillarsConfig, use_pallas_pfn: bool,
 
 def build_canvas_fn(model: PointPillars, config: PillarsConfig,
                     use_pallas_pfn: bool = True,
-                    fused_frontend: Optional[bool] = None):
+                    fused_frontend: Optional[bool] = None,
+                    dtype=torch.float32):
     """Front half of stage 1: f(points (B, M, F), num_points (B,)) -> BEV
-    canvas (B, H, W, C). Fused front end, or the classic one with K6
-    (``use_pallas_pfn``) or the plain PillarFeatureNet; see the module
-    docstring. The folded PFN weights are taken once, here."""
+    canvas (B, H, W, C) in ``dtype``. Fused front end, or the classic one
+    with K6 (``use_pallas_pfn``) or the plain PillarFeatureNet; see the
+    module docstring. The fused and K6 front ends compute f32 rows and K3
+    writes them into a ``dtype`` canvas; the plain PillarFeatureNet runs in
+    ``dtype``. The folded PFN weights are taken once, here."""
     fused = use_fused_frontend(config, use_pallas_pfn, fused_frontend)
     w, b = model.pfn.folded()
 
@@ -93,7 +99,7 @@ def build_canvas_fn(model: PointPillars, config: PillarsConfig,
         if fused:
             feats, pid_per, pmask = pillarize_pfn_fused(points, num_points,
                                                         w, b, config)
-            return scatter_to_bev(feats, pid_per, pmask, config)
+            return scatter_to_bev(feats, pid_per, pmask, config, dtype)
         batch = pillarize_batch_emit(points, num_points, config)
         B, P, N, D = batch.features.shape
         if use_pallas_pfn:
@@ -101,26 +107,29 @@ def build_canvas_fn(model: PointPillars, config: PillarsConfig,
                              batch.mask.reshape(B * P, N), w, b)
             feats = flat.reshape(B, P, -1)
         else:
-            feats = model.pfn(batch.features, batch.mask)
+            feats = model.pfn(batch.features, batch.mask, dtype)
         return scatter_to_bev_auto(feats, batch.coords, batch.pillar_mask,
-                                   config)
+                                   config, dtype)
 
     return canvas_fn
 
 
 def build_model_fn(model: PointPillars, config: PillarsConfig,
                    use_pallas_pfn: bool = True,
-                   fused_frontend: Optional[bool] = None):
+                   fused_frontend: Optional[bool] = None,
+                   dtype=torch.float32):
     """Stage 1: f(points (B, M, F), num_points (B,)) -> wire tensors (own
-    (B, A), box_p (B, 7, A), dir_p (B, 2, A)), f32. Its two halves stay
-    callable apart, as ``.canvas`` (points -> canvas) and ``.wire``
-    (canvas -> wire tensors), so that a caller can time them."""
+    (B, A), box_p (B, 7, A), dir_p (B, 2, A)), f32, the RPN and the head
+    computed in ``dtype``. Its two halves stay callable apart, as
+    ``.canvas`` (points -> canvas) and ``.wire`` (canvas -> wire tensors),
+    so that a caller can time them."""
     canvas_fn = build_canvas_fn(model, config, use_pallas_pfn=use_pallas_pfn,
-                                fused_frontend=fused_frontend)
+                                fused_frontend=fused_frontend, dtype=dtype)
 
     @torch.no_grad()
     def wire_fn(canvas):
-        return model.wire_head(model.features_from_canvas(canvas))
+        return model.wire_head(model.features_from_canvas(canvas, dtype),
+                               dtype)
 
     def run_model(points, num_points):
         return wire_fn(canvas_fn(points, num_points))
@@ -149,11 +158,12 @@ def build_postprocess_fn(config: PillarsConfig, device=None):
 
 def build_forward_fn(model: PointPillars, config: PillarsConfig,
                      use_pallas_pfn: bool = True,
-                     fused_frontend: Optional[bool] = None):
-    """f(points (B, M, F), num_points (B,)) -> Detections: stage 1 then
-    stage 2 on the model's device."""
+                     fused_frontend: Optional[bool] = None,
+                     dtype=torch.float32):
+    """f(points (B, M, F), num_points (B,)) -> Detections: stage 1 (in
+    ``dtype``) then stage 2 on the model's device."""
     stage1 = build_model_fn(model, config, use_pallas_pfn=use_pallas_pfn,
-                            fused_frontend=fused_frontend)
+                            fused_frontend=fused_frontend, dtype=dtype)
     device = next(model.parameters()).device
     stage2 = build_postprocess_fn(config, device)
 
@@ -171,8 +181,13 @@ class Detector:
                  device=None, host_crop: bool = True,
                  wire_buckets: "Optional[tuple]" = None,
                  fused_frontend: Optional[bool] = None,
-                 use_pallas_pfn: bool = True):
+                 use_pallas_pfn: bool = True, dtype=torch.float32):
         """state_dict: ``weights.params_from_flax`` output.
+
+        dtype: the compute type of stage 1, ``torch.float32`` (default) or
+        ``torch.bfloat16`` (the JAX ``Detector(dtype=jnp.bfloat16)``): the
+        RPN and the head run in bf16 on bf16 views of the f32 weights, and
+        the wire and everything after it stay f32.
 
         fused_frontend: True for the decoration-free fused front end, False
         for the classic one, None (default) for the fused one exactly when
@@ -206,19 +221,25 @@ class Detector:
         self.fused_frontend = use_fused_frontend(config, use_pallas_pfn,
                                                  fused_frontend)
         self.use_pallas_pfn = use_pallas_pfn
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"Detector dtype must be torch.float32 or "
+                            f"torch.bfloat16, got {dtype}")
+        self.dtype = dtype
         self._stage1 = build_model_fn(self.model, config,
                                       use_pallas_pfn=use_pallas_pfn,
-                                      fused_frontend=fused_frontend)
+                                      fused_frontend=fused_frontend,
+                                      dtype=dtype)
         self._post = build_postprocess_fn(config, self.device)
 
     def load_state_dict(self, state_dict: dict) -> None:
-        """Serve other weights with the same programs: copy ``state_dict``
-        into the model and fold the PFN weights again (stage 1 takes them
-        once, when it is built)."""
+        """Serve other weights with the same programs and ``dtype``: copy
+        ``state_dict`` into the model and fold the PFN weights again (stage
+        1 takes them once, when it is built)."""
         self.model.load_state_dict(state_dict)
         self._stage1 = build_model_fn(self.model, self.config,
                                       use_pallas_pfn=self.use_pallas_pfn,
-                                      fused_frontend=self.fused_frontend)
+                                      fused_frontend=self.fused_frontend,
+                                      dtype=self.dtype)
 
     @classmethod
     def from_checkpoint(cls, config: PillarsConfig, path: str, **kw
@@ -239,7 +260,8 @@ class Detector:
     # --- stages (device tensors, static shapes) ---
 
     def canvas(self, points: torch.Tensor, num_points: torch.Tensor):
-        """(B, M, F) f32 points, (B,) counts -> (B, H, W, C) canvas."""
+        """(B, M, F) f32 points, (B,) counts -> (B, H, W, C) canvas in
+        ``self.dtype``."""
         return self._stage1.canvas(points, num_points)
 
     def wire(self, canvas: torch.Tensor):

@@ -13,6 +13,13 @@ module's ``train_forward`` normalizes with the batch moments as flax's
 running statistics: under ``torch.utils.checkpoint`` a block's forward runs
 twice, so the caller applies :meth:`BatchNorm.update_running` once per step
 (``ra = 0.99 ra + 0.01 batch``, flax's rule, not torch's unbiased one).
+
+``dtype`` is the compute type (float32 or bfloat16), with flax's cast
+points: each conv and conv-transpose runs on its input and a view of its
+f32 weight cast to ``dtype``; BatchNorm takes its moments of the input in
+f32, normalises in f32 (f32 mean, var, scale and bias) and returns
+``dtype``. Parameters and running statistics stay f32; in float32 every
+cast is a no-op.
 """
 
 from __future__ import annotations
@@ -40,22 +47,26 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
+        """Running-statistics BatchNorm; the arithmetic runs in f32 and the
+        output keeps x's type (a bf16 x takes one mixed-type pass)."""
         return F.batch_norm(x, self.running_mean, self.running_var,
                             self.weight, self.bias, training=False,
                             eps=BN_EPS)
 
     def train_forward(self, x):
         """Batch-statistics BatchNorm of (B, C, H, W) x -> (y, mean, var),
-        flax's arithmetic: y = (x - mean) * (rsqrt(var + eps) * scale)
-        + bias."""
+        flax's arithmetic in f32 on ``x.float()``: y = (x - mean) *
+        (rsqrt(var + eps) * scale) + bias, cast back to x's type; the
+        moments are f32."""
         dims = (0, 2, 3)
-        mean = x.mean(dim=dims)
-        mean2 = (x * x).mean(dim=dims)
+        xf = x.float()
+        mean = xf.mean(dim=dims)
+        mean2 = (xf * xf).mean(dim=dims)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
-        y = (x - mean[:, None, None]) * mul[:, None, None] \
+        y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
-        return y, mean, var
+        return y.to(x.dtype), mean, var
 
     @torch.no_grad()
     def update_running(self, mean, var) -> None:
@@ -80,19 +91,19 @@ class ConvBlock(nn.Module):
              for i in range(layers)])
         self.bns = nn.ModuleList(BatchNorm(channels) for _ in range(layers))
 
-    def forward(self, x):
+    def forward(self, x, dtype=torch.float32):
         for i, (w, bn) in enumerate(zip(self.convs, self.bns)):
-            x = F.conv2d(x, w, stride=self.stride if i == 0 else 1,
-                         padding=1)
+            x = F.conv2d(x.to(dtype), w.to(dtype),
+                         stride=self.stride if i == 0 else 1, padding=1)
             x = torch.relu(bn(x))
         return x
 
-    def train_forward(self, x):
+    def train_forward(self, x, dtype=torch.float32):
         """Batch-statistics forward -> (y, mean_0, var_0, mean_1, ...)."""
         moments = []
         for i, (w, bn) in enumerate(zip(self.convs, self.bns)):
-            x = F.conv2d(x, w, stride=self.stride if i == 0 else 1,
-                         padding=1)
+            x = F.conv2d(x.to(dtype), w.to(dtype),
+                         stride=self.stride if i == 0 else 1, padding=1)
             x, mean, var = bn.train_forward(x)
             x = torch.relu(x)
             moments += [mean, var]
@@ -109,13 +120,13 @@ class UpBlock(nn.Module):
                                                stride))
         self.bn = BatchNorm(channels)
 
-    def forward(self, x):
-        return torch.relu(self.bn(F.conv_transpose2d(x, self.weight,
-                                                     stride=self.stride)))
+    def forward(self, x, dtype=torch.float32):
+        return torch.relu(self.bn(F.conv_transpose2d(
+            x.to(dtype), self.weight.to(dtype), stride=self.stride)))
 
-    def train_forward(self, x):
-        y, mean, var = self.bn.train_forward(
-            F.conv_transpose2d(x, self.weight, stride=self.stride))
+    def train_forward(self, x, dtype=torch.float32):
+        y, mean, var = self.bn.train_forward(F.conv_transpose2d(
+            x.to(dtype), self.weight.to(dtype), stride=self.stride))
         return torch.relu(y), mean, var
 
 
@@ -134,11 +145,11 @@ class RPNBackbone(nn.Module):
             self.ups.append(UpBlock(ch, up_channels, 2 ** i))
             prev = ch
 
-    def forward(self, x):
+    def forward(self, x, dtype=torch.float32):
         ups = []
         for block, up in zip(self.blocks, self.ups):
-            x = block(x)
-            ups.append(up(x))
+            x = block(x, dtype)
+            ups.append(up(x, dtype))
         return torch.cat(ups, dim=1)
 
     def batch_norms(self) -> List[BatchNorm]:
@@ -149,10 +160,11 @@ class RPNBackbone(nn.Module):
             out += list(block.bns) + [up.bn]
         return out
 
-    def train_forward(self, x, remat: bool = False):
+    def train_forward(self, x, remat: bool = False, dtype=torch.float32):
         """Batch-statistics forward -> (features, moments) with one (mean,
-        var) per :meth:`batch_norms` entry. remat checkpoints each block:
-        its activations are recomputed in the backward pass."""
+        var) per :meth:`batch_norms` entry, f32 whatever ``dtype``. remat
+        checkpoints each block: its activations are recomputed (with the
+        same casts) in the backward pass."""
         def run(fn, *args):
             if remat:
                 return checkpoint(fn, *args, use_reentrant=False)
@@ -160,9 +172,9 @@ class RPNBackbone(nn.Module):
 
         ups, flat = [], []
         for block, up in zip(self.blocks, self.ups):
-            x, *m = run(block.train_forward, x)
+            x, *m = run(block.train_forward, x, dtype)
             flat += m
-            u, *m = run(up.train_forward, x)
+            u, *m = run(up.train_forward, x, dtype)
             flat += m
             ups.append(u)
         moments = list(zip(flat[0::2], flat[1::2]))

@@ -11,6 +11,13 @@ and BatchNorm affines are trainable parameters; serving runs them under
 TF32: a float32 convolution goes through cuDNN in TF32 by default, and the
 JAX reference runs in full f32. :func:`full_fp32` turns TF32 off for
 cuDNN and cuBLAS for the span of a call and restores the caller's settings.
+
+bf16: the dense part takes a ``dtype`` (float32 or bfloat16) with flax's
+cast points (``PointPillars(dtype=)`` and ``detector._wire_head(dtype=)``
+in the JAX package): the convs, the head matmuls and the PillarFeatureNet's
+linear layer run on ``dtype`` views of the f32 weights, BatchNorm
+normalises in f32 and returns ``dtype``, and the heads return f32.
+:func:`full_fp32` wraps the float32 path only (TF32 does not touch bf16).
 """
 
 from __future__ import annotations
@@ -39,6 +46,15 @@ def full_fp32():
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
+def precision(dtype):
+    """:func:`full_fp32` for float32, nothing for bfloat16."""
+    if dtype == torch.float32:
+        return full_fp32()
+    if dtype == torch.bfloat16:
+        return contextlib.nullcontext()
+    raise TypeError(f"compute dtype must be float32 or bfloat16, got {dtype}")
+
+
 def remat_flags(remat) -> tuple:
     """Normalize the remat knob to (checkpoint_pfn, checkpoint_rpn):
     True/"all" both tiers, "pfn" or "rpn" one, False/"off"/None neither."""
@@ -64,15 +80,17 @@ class PFNWeights(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(in_dim, channels))
         self.bn = BatchNorm(channels)
 
-    def forward(self, features, mask):
-        """The flax ``PillarFeatureNet`` at inference (running statistics):
-        (..., P, N, D) decorated features, (..., P, N) mask -> (..., P, C).
-        Linear, BatchNorm, ReLU, masked max over N; empty pillars give 0."""
+    def forward(self, features, mask, dtype=torch.float32):
+        """The flax ``PillarFeatureNet(dtype=)`` at inference (running
+        statistics): (..., P, N, D) decorated features, (..., P, N) mask ->
+        (..., P, C) in ``dtype``. Linear on ``dtype`` views, BatchNorm in
+        f32 cast to ``dtype`` (flax's ``MaskedBatchNorm``), ReLU, masked max
+        over N; empty pillars give 0."""
         bn = self.bn
-        with full_fp32():
-            x = features @ self.kernel
+        with precision(dtype):
+            x = features.to(dtype) @ self.kernel.to(dtype)
         y = (x - bn.running_mean) * torch.rsqrt(bn.running_var + BN_EPS)
-        y = torch.relu(y * bn.weight + bn.bias)
+        y = torch.relu((y * bn.weight + bn.bias).to(dtype))
         y = torch.where(mask[..., None], y, -1e9)
         return torch.where(mask.any(dim=-1)[..., None], y.amax(dim=-2), 0.0)
 
@@ -115,38 +133,42 @@ class WireHead(nn.Module):
         self.register_buffer("perm_box", colperm(7), persistent=False)
         self.register_buffer("perm_dir", colperm(2), persistent=False)
 
-    def forward(self, feat):
-        """feat (B, Hf, Wf, C) -> (own, box_p, dir_p), f32."""
+    def forward(self, feat, dtype=torch.float32):
+        """feat (B, Hf, Wf, C) -> (own, box_p, dir_p), f32. The feature map,
+        weights and biases are cast to ``dtype`` and the products rounded
+        there, as ``_wire_head(dtype=)`` does."""
         B, hf, wf, c = feat.shape
         hw = hf * wf
         a = hw * self.a_loc
-        f = feat.reshape(B, hw, c)
-        own = (f @ self.cls.weight[:, self.own_ch]
-               + self.cls.bias[self.own_ch])
+        f = feat.reshape(B, hw, c).to(dtype)
+        own = (f @ self.cls.weight[:, self.own_ch].to(dtype)
+               + self.cls.bias[self.own_ch].to(dtype))
         ft = f.transpose(1, 2)                                 # (B, C, HW)
-        box_p = (self.box.weight[:, self.perm_box].t() @ ft
-                 + self.box.bias[self.perm_box][:, None])
-        dir_p = (self.dir.weight[:, self.perm_dir].t() @ ft
-                 + self.dir.bias[self.perm_dir][:, None])
-        return (own.reshape(B, a), box_p.reshape(B, 7, a),
-                dir_p.reshape(B, 2, a))
+        box_p = (self.box.weight[:, self.perm_box].t().to(dtype) @ ft
+                 + self.box.bias[self.perm_box][:, None].to(dtype))
+        dir_p = (self.dir.weight[:, self.perm_dir].t().to(dtype) @ ft
+                 + self.dir.bias[self.perm_dir][:, None].to(dtype))
+        return (own.reshape(B, a).float(), box_p.reshape(B, 7, a).float(),
+                dir_p.reshape(B, 2, a).float())
 
-    def feature_major(self, feat):
+    def feature_major(self, feat, dtype=torch.float32):
         """The training head: feat (B, Hf, Wf, C) -> (cls (B, K, A),
         box (B, 7, A), dir (B, 2, A)) f32 in CANONICAL anchor order (a = hw
         * A_loc + a_loc). Each output feature k is its own (HW, C) @ (C,
-        A_loc) product of the kernel's columns a_loc * k_dim + k, as
-        ``tpu_pillars/models/head.py`` feature_major_head computes it."""
+        A_loc) product of the kernel's columns a_loc * k_dim + k, in
+        ``dtype``, as ``tpu_pillars/models/head.py`` feature_major_head
+        computes it."""
         B, hf, wf, c = feat.shape
-        f = feat.reshape(B, hf * wf, c)
+        f = feat.reshape(B, hf * wf, c).to(dtype)
 
         def emit(lin, k_dim):
             outs = []
             for k in range(k_dim):
                 cols = torch.arange(self.a_loc, device=feat.device) * k_dim + k
-                out_k = f @ lin.weight[:, cols] + lin.bias[cols]
+                out_k = (f @ lin.weight[:, cols].to(dtype)
+                         + lin.bias[cols].to(dtype))
                 outs.append(out_k.reshape(B, -1))
-            return torch.stack(outs, dim=1)
+            return torch.stack(outs, dim=1).float()
 
         return emit(self.cls, self.k), emit(self.box, 7), emit(self.dir, 2)
 
@@ -167,22 +189,25 @@ class PointPillars(nn.Module):
         self.head = WireHead(3 * config.rpn_up_channels, config.num_classes,
                              config.anchors_per_loc)
 
-    def features_from_canvas(self, canvas):
-        """(B, H, W, C_in) canvas -> (B, H/2, W/2, C_feat) feature map."""
-        x = canvas.permute(0, 3, 1, 2).contiguous(
+    def features_from_canvas(self, canvas, dtype=torch.float32):
+        """(B, H, W, C_in) canvas -> (B, H/2, W/2, C_feat) feature map in
+        ``dtype``."""
+        x = canvas.to(dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        with full_fp32():
-            return self.rpn(x).permute(0, 2, 3, 1).contiguous()
+        with precision(dtype):
+            return self.rpn(x, dtype).permute(0, 2, 3, 1).contiguous()
 
-    def train_features_from_canvas(self, canvas, remat: bool = False):
+    def train_features_from_canvas(self, canvas, remat: bool = False,
+                                   dtype=torch.float32):
         """Batch-statistics RPN: canvas -> (feature map (B, H/2, W/2,
-        C_feat), one (mean, var) per ``self.rpn.batch_norms()``). The caller
-        holds ``full_fp32`` across forward and backward."""
-        x = canvas.permute(0, 3, 1, 2).contiguous(
+        C_feat) in ``dtype``, one f32 (mean, var) per
+        ``self.rpn.batch_norms()``). The caller holds ``full_fp32`` across
+        forward and backward."""
+        x = canvas.to(dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        feat, moments = self.rpn.train_forward(x, remat=remat)
+        feat, moments = self.rpn.train_forward(x, remat=remat, dtype=dtype)
         return feat.permute(0, 2, 3, 1), moments
 
-    def wire_head(self, feat):
-        with full_fp32():
-            return self.head(feat)
+    def wire_head(self, feat, dtype=torch.float32):
+        with precision(dtype):
+            return self.head(feat, dtype)

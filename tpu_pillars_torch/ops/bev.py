@@ -7,7 +7,11 @@ holds each pillar once) and ascend (masked pillars last), so the result is
 exact with no atomics. On a CUDA tensor :func:`scatter_to_bev` launches
 ``csrc/bev_scatter.cu``, one block per tile of 64 cells (fixed in the
 kernel) that finds its own rows and writes every element of the tile once;
-on a CPU tensor it runs :func:`scatter_to_bev_plain`. Training uses
+on a CPU tensor it runs :func:`scatter_to_bev_plain`. Its ``out_dtype``
+picks one of three instances: f32 rows to an f32 canvas, f32 rows to a
+bf16 canvas (each element rounded once, so the canvas equals the f32 one
+cast to bf16: bf16 serving) and bf16 rows to a bf16 canvas (bf16
+training); other type pairs raise. Training uses
 :func:`scatter_to_bev_diff`: the same forward, and the JAX package's
 row-gather backward (``bev_pallas.py`` ``_ring_diff_bwd``).
 :func:`scatter_to_bev_auto` is the classic front end's entry, with (row,
@@ -34,43 +38,57 @@ from tpu_pillars_torch.config import PillarsConfig
 # canvas cells per tile of K9, handed to both of its kernels
 GATHER_TILE_CELLS = 64
 
+# K3's instances: (row dtype, canvas dtype) -> its C entry, which is also
+# its name in ``_build.LAUNCHES``
+SCATTER_INSTANCES = {
+    (torch.float32, torch.float32): "bev_scatter",
+    (torch.float32, torch.bfloat16): "bev_scatter_f32_bf16",
+    (torch.bfloat16, torch.bfloat16): "bev_scatter_bf16",
+}
+_F32_ONLY = {(torch.float32, torch.float32)}
 
-def _check(feats, pid, mask):
+
+def _check(feats, pid, mask, out_dtype=torch.float32, pairs=_F32_ONLY):
     if feats.dim() != 3 or pid.shape != feats.shape[:2] \
             or mask.shape != feats.shape[:2]:
         raise ValueError(f"scatter_to_bev wants feats (B, P, C), pid and "
                          f"mask (B, P); got {tuple(feats.shape)}, "
                          f"{tuple(pid.shape)}, {tuple(mask.shape)}")
-    if feats.dtype != torch.float32 or pid.dtype != torch.int32 \
+    if (feats.dtype, out_dtype) not in pairs or pid.dtype != torch.int32 \
             or mask.dtype != torch.bool:
-        raise TypeError(f"scatter_to_bev wants float32 / int32 / bool, got "
-                        f"{feats.dtype} / {pid.dtype} / {mask.dtype}")
+        want = ", ".join(f"{str(a)[6:]} -> {str(b)[6:]}" for a, b in pairs)
+        raise TypeError(f"scatter_to_bev wants rows -> canvas in ({want}), "
+                        f"int32 ids and a bool mask; got {feats.dtype} -> "
+                        f"{out_dtype}, {pid.dtype}, {mask.dtype}")
     if not (feats.device == pid.device == mask.device):
         raise ValueError("scatter_to_bev inputs lie on different devices")
 
 
 def scatter_to_bev(pillar_features, pid_per, pillar_mask,
-                   config: PillarsConfig):
-    """(B, P, C) f32 pillar features, (B, P) int32 pillar ids, (B, P) bool
-    validity -> (B, H, W, C) f32 canvas.
+                   config: PillarsConfig, out_dtype=torch.float32):
+    """(B, P, C) pillar features, (B, P) int32 pillar ids, (B, P) bool
+    validity -> (B, H, W, C) canvas of ``out_dtype``. Rows and canvas:
+    f32 -> f32, f32 -> bf16 (each element rounded to nearest even once) or
+    bf16 -> bf16; any other pair raises (no silent conversion).
     PRECONDITION (the reference's, ``scatter_to_bev_ring``):
     ``where(pillar_mask, pid_per, H*W)`` ascends along P in every sample,
     and the valid ids are unique and lie in [0, H*W) (the emit table's and
     the pillarizers' order); other orders give a wrong canvas on the card.
     Not checked here: that would need a sync with the card."""
-    _check(pillar_features, pid_per, pillar_mask)
+    _check(pillar_features, pid_per, pillar_mask, out_dtype,
+           SCATTER_INSTANCES)
     if pillar_features.device.type == "cpu":
         return scatter_to_bev_plain(pillar_features, pid_per, pillar_mask,
-                                    config)
+                                    config, out_dtype)
     H, W = config.grid_h, config.grid_w
     B, P, C = pillar_features.shape
     feats = pillar_features.contiguous()
     pid = pid_per.contiguous()
     mask = pillar_mask.contiguous()
-    canvas = torch.empty((B, H, W, C), dtype=torch.float32,
-                         device=feats.device)
-    _build.launch("bev_scatter", "bev_scatter", "ppppiiii", feats, pid, mask,
-                  canvas, B, P, C, H * W)
+    canvas = torch.empty((B, H, W, C), dtype=out_dtype, device=feats.device)
+    symbol = SCATTER_INSTANCES[(feats.dtype, out_dtype)]
+    _build.launch("bev_scatter", symbol, "ppppiiii", feats, pid, mask,
+                  canvas, B, P, C, H * W, count=symbol)
     return canvas
 
 
@@ -82,19 +100,23 @@ class _ScatterDiff(torch.autograd.Function):
     ids or the mask)."""
 
     @staticmethod
-    def forward(ctx, pillar_features, pid_per, pillar_mask, config):
+    def forward(ctx, pillar_features, pid_per, pillar_mask, config,
+                out_dtype):
         ctx.save_for_backward(pid_per, pillar_mask)
-        return scatter_to_bev(pillar_features, pid_per, pillar_mask, config)
+        return scatter_to_bev(pillar_features, pid_per, pillar_mask, config,
+                              out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         pid_per, pillar_mask = ctx.saved_tensors
-        return scatter_to_bev_grad(g, pid_per, pillar_mask), None, None, None
+        return (scatter_to_bev_grad(g, pid_per, pillar_mask), None, None,
+                None, None)
 
 
 def scatter_to_bev_grad(g, pid_per, pillar_mask):
     """Cotangent of the pillar features: (B, H, W, C) canvas cotangent ->
-    (B, P, C), one row gather (the JAX package does it in XLA)."""
+    (B, P, C) in the cotangent's dtype, one row gather (the JAX package
+    does it in XLA)."""
     B, P = pid_per.shape
     C = g.shape[-1]
     g2 = g.reshape(B, -1, C)
@@ -104,36 +126,39 @@ def scatter_to_bev_grad(g, pid_per, pillar_mask):
 
 
 def scatter_to_bev_diff(pillar_features, pid_per, pillar_mask,
-                        config: PillarsConfig):
+                        config: PillarsConfig, out_dtype=torch.float32):
     """Differentiable :func:`scatter_to_bev` for training (K3 on the card)
     with the row-gather backward."""
-    return _ScatterDiff.apply(pillar_features, pid_per, pillar_mask, config)
+    return _ScatterDiff.apply(pillar_features, pid_per, pillar_mask, config,
+                              out_dtype)
 
 
 def scatter_to_bev_plain(pillar_features, pid_per, pillar_mask,
-                         config: PillarsConfig):
+                         config: PillarsConfig, out_dtype=torch.float32):
     """Plain PyTorch version of :func:`scatter_to_bev`: one masked index
-    assignment into the flat canvas."""
-    _check(pillar_features, pid_per, pillar_mask)
+    assignment of the rows, cast to ``out_dtype``, into the flat canvas."""
+    _check(pillar_features, pid_per, pillar_mask, out_dtype,
+           SCATTER_INSTANCES)
     H, W = config.grid_h, config.grid_w
     B, P, C = pillar_features.shape
     dev = pillar_features.device
     flat = (pid_per.long()
             + torch.arange(B, device=dev)[:, None] * (H * W))
-    canvas = torch.zeros((B * H * W, C), dtype=torch.float32, device=dev)
-    canvas[flat[pillar_mask]] = pillar_features[pillar_mask]
+    canvas = torch.zeros((B * H * W, C), dtype=out_dtype, device=dev)
+    canvas[flat[pillar_mask]] = pillar_features[pillar_mask].to(out_dtype)
     return canvas.reshape(B, H, W, C)
 
 
 def scatter_to_bev_auto(pillar_features, coords, pillar_mask,
-                        config: PillarsConfig):
+                        config: PillarsConfig, out_dtype=torch.float32):
     """The classic front end's scatter (``bev_pallas.py``
     ``scatter_to_bev_auto``): (B, P, C) features, (B, P, 2) int32 (row,
     col) coords, (B, P) validity -> (B, H, W, C) canvas through K3, with
     pid = row * W + col. The reference's version also picks a backend; this
     one has only K3 and is kept so that the name matches."""
     pid = (coords[..., 0] * config.grid_w + coords[..., 1]).to(torch.int32)
-    return scatter_to_bev(pillar_features, pid, pillar_mask, config)
+    return scatter_to_bev(pillar_features, pid, pillar_mask, config,
+                          out_dtype)
 
 
 def block_row_ranges(pid_per, pillar_mask, hw: int):

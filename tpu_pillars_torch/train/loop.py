@@ -1,10 +1,12 @@
-"""Training driver: seeded synthetic batches in, the training step on the
-card, JSONL metrics, full checkpoints every ``ckpt_every`` steps and at the
-end, evaluation during training, and the elastic hooks. Port of
-``tpu_pillars/train/loop.py`` (synthetic data, no augmentation).
+"""The training loop: seeded synthetic batches or a Lyft-format dataset in,
+the training step on the card, JSONL metrics, full checkpoints every
+``ckpt_every`` steps and at the end, evaluation during training, and the
+elastic hooks. Port of ``tpu_pillars/train/loop.py``.
 
     python -m tpu_pillars_torch.train.loop --full-size --steps 20 --batch 8 \\
-        --out DIR [--resume] [--ema 0.999] [--eval-every N] [--tensorboard]
+        --out DIR [--resume] [--ema 0.999] [--eval-every N] [--tensorboard] \\
+        [--bf16] [--data JSON_DIR [--workers 4] [--no-augment] \\
+        [--object-noise] [--cbgs 1.0] [--gt-sample 8] [--val-samples 8]]
 
 writes ``DIR/train.jsonl``, ``DIR/ckpt.msgpack`` (a full checkpoint, which
 both packages resume and both packages' ``Detector.from_checkpoint``
@@ -16,7 +18,13 @@ checkpoint and exit 0; ``--resume`` continues from ``DIR/ckpt.msgpack``
 on the same loss curve. ``--device cpu`` runs the kernels' plain versions
 on the CPU (use the default tiny config there). ``--prefetch N`` (default
 2) builds N batches ahead in a background thread and moves them to the
-device there; 0 builds each batch in the step.
+device there; 0 builds each batch in the step. ``--bf16`` trains in mixed
+precision (bf16 canvas, RPN and head; f32 master state, checkpoints and
+losses). ``--data`` trains on a Lyft-format dataset (``train/data.py``)
+with the global augmentation (``--no-augment`` turns it off), and
+optionally per-object noise, GT-database sampling and class-balanced
+resampling; with ``--eval-every`` its last ``--val-samples`` samples are
+held out and scored with ``evaluate_dataset``.
 """
 
 from __future__ import annotations
@@ -49,14 +57,24 @@ from tpu_pillars_torch.utils.logging import JsonlLogger
 
 
 def synthetic_batches(config: PillarsConfig, tcfg: TrainConfig, seed: int = 0,
+                      augment: bool = False,
                       **scene_kw) -> Iterable[tuple]:
     """Endless stream of numpy batches (points, num_points, gt_boxes,
     gt_classes, gt_valid) of seeded synthetic scenes — the JAX package's
-    stream for the same seed (no augmentation)."""
+    stream for the same seed; ``augment`` applies the global transforms
+    (``data.augment.augment_scene``) to each scene from the same RNG."""
+    from tpu_pillars_torch.data.augment import augment_scene
+
     rng = np.random.default_rng(seed)
     while True:
-        scenes = [make_scene(rng, config, **scene_kw)
-                  for _ in range(tcfg.batch_size)]
+        scenes = []
+        for _ in range(tcfg.batch_size):
+            scene = make_scene(rng, config, **scene_kw)
+            if augment:
+                pts, boxes = augment_scene(rng, scene.points, scene.gt_boxes)
+                scene = scene.__class__(pts, boxes, scene.gt_classes,
+                                        scene.boxes)
+            scenes.append(scene)
         yield scenes_to_train_batch(scenes, config, tcfg.max_gt_boxes)
 
 
@@ -148,39 +166,135 @@ def fit(state: TrainState, batches: Iterable, steps: int,
     return state
 
 
-def make_synthetic_eval_fn(config: PillarsConfig, num_scenes: int = 8,
-                           seed: int = 100_000, **scene_kw):
-    """eval_fn for :func:`fit`: detection mAP on a fixed held-out synthetic
-    split.
-
-    The ``Detector`` is built once, on the first call, on the state's
-    device; later calls only load the state's weights into it."""
+def _serving(config: PillarsConfig):
+    """state -> a ``Detector`` (f32) serving the state's weights: built
+    once, on the first call, on the state's device; later calls only load
+    the state's weights into it."""
     from tpu_pillars_torch.detector import Detector
-    from tpu_pillars_torch.evaluation.pipeline import evaluate_scenes
 
-    rng = np.random.default_rng(seed)
-    scenes = [make_scene(rng, config, **scene_kw) for _ in range(num_scenes)]
     cache: list = []
 
-    def eval_fn(state: TrainState):
+    def serve(state: TrainState):
         weights = state.model.state_dict()
         if not cache:
             device = next(state.model.parameters()).device
             cache.append(Detector(config, weights, device=device))
-        det = cache[0]
-        det.load_state_dict(weights)
-        mAP, _table = evaluate_scenes(det, scenes)
+        else:
+            cache[0].load_state_dict(weights)
+        return cache[0]
+
+    return serve
+
+
+def make_synthetic_eval_fn(config: PillarsConfig, num_scenes: int = 8,
+                           seed: int = 100_000, **scene_kw):
+    """eval_fn for :func:`fit`: detection mAP on a fixed held-out synthetic
+    split, served in f32 by one ``Detector`` (:func:`_serving`)."""
+    from tpu_pillars_torch.evaluation.pipeline import evaluate_scenes
+
+    rng = np.random.default_rng(seed)
+    scenes = [make_scene(rng, config, **scene_kw) for _ in range(num_scenes)]
+    serve = _serving(config)
+
+    def eval_fn(state: TrainState):
+        mAP, _table = evaluate_scenes(serve(state), scenes)
         return {"mAP": mAP}
 
     return eval_fn
 
 
-def main(argv=None) -> None:
+def make_dataset_eval_fn(config: PillarsConfig, dataset, tokens):
+    """eval_fn for :func:`fit`: detection mAP of ``evaluate_dataset`` on
+    the held-out ``tokens`` of ``dataset``, served in f32 by one
+    ``Detector`` (the JAX loop's ``Detector(config, state.variables)``)."""
+    from tpu_pillars_torch.evaluation.pipeline import evaluate_dataset
+
+    serve = _serving(config)
+
+    def eval_fn(state: TrainState):
+        mAP, _table, _preds = evaluate_dataset(serve(state), dataset,
+                                               sample_tokens=tokens)
+        return {"mAP": mAP}
+
+    return eval_fn
+
+
+def dataset_stream(args, config: PillarsConfig, tcfg: TrainConfig):
+    """``main --data``'s batches and eval hook, wired as the JAX loop wires
+    them: the last ``--val-samples`` samples are held out (with
+    ``--eval-every``), the GT database is built from the unique train
+    tokens before ``--cbgs`` resamples them. Returns (batches, eval_fn)."""
+    from tpu_pillars_torch.data.augment import AugmentConfig, ObjectNoiseConfig
+    from tpu_pillars_torch.data.lyft import LyftDataset
+    from tpu_pillars_torch.train.data import (
+        class_balanced_tokens, dataset_batches,
+    )
+
+    ds = LyftDataset(args.data)
+    tokens = list(ds.sample_tokens())
+    train_tokens = tokens
+    eval_fn = None
+    if args.eval_every > 0 and args.val_samples > 0:
+        n_val = min(args.val_samples, max(len(tokens) - args.batch, 0))
+        train_tokens = tokens[: len(tokens) - n_val]
+        val_tokens = tokens[len(tokens) - n_val:]
+        if val_tokens:
+            eval_fn = make_dataset_eval_fn(config, ds, val_tokens)
+    gt_sampler = None
+    if args.gt_sample > 0:
+        from tpu_pillars_torch.data.gt_sampler import (
+            GTDatabase, GTSampleConfig, GTSampler,
+        )
+
+        db = GTDatabase.from_dataset(ds, config, tokens=train_tokens)
+        gt_sampler = GTSampler(
+            db, GTSampleConfig(target_per_class=args.gt_sample))
+    if args.cbgs > 0:
+        # balance AFTER the GT database build: its per-class counts must
+        # come from the unique tokens
+        train_tokens = class_balanced_tokens(
+            ds, config, tokens=train_tokens, seed=args.seed, ratio=args.cbgs)
+    batches = dataset_batches(
+        ds, config, tcfg.batch_size, tcfg.max_gt_boxes, tokens=train_tokens,
+        augment=None if args.no_augment else AugmentConfig(),
+        object_noise=ObjectNoiseConfig() if args.object_noise else None,
+        gt_sampler=gt_sampler, seed=args.seed,
+        num_workers=max(args.workers, 0))
+    return batches, eval_fn
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    """``main``'s command line."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--batch", type=int, default=4)
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--out", type=str, default="tpu_pillars_torch_run")
+    p.add_argument("--data", type=str, default=None,
+                   help="Lyft-format dataset directory (data.lyft.LyftDataset"
+                        " json root). Default: seeded synthetic scenes")
+    p.add_argument("--workers", type=int, default=4,
+                   help="thread-pool width for per-sample dataset loads "
+                        "(--data only; any value yields the same stream)")
+    p.add_argument("--no-augment", action="store_true",
+                   help="disable the global flip/rotate/scale/translate "
+                        "augmentation on dataset samples")
+    p.add_argument("--object-noise", action="store_true",
+                   help="per-object augmentation: independent yaw jitter + "
+                        "xy translation of each GT box and its points, "
+                        "collision-rejected (--data only)")
+    p.add_argument("--cbgs", type=float, default=0.0,
+                   help="class-balanced scene resampling (CBGS, "
+                        "arXiv:1908.09492): >0 resamples the train tokens "
+                        "so every class gets an equal share; the value is "
+                        "the output/input length ratio (--data only)")
+    p.add_argument("--gt-sample", type=int, default=0,
+                   help="if > 0, GT-database sampling augmentation: paste-"
+                        "inject stored objects until each class has N "
+                        "instances per scene (--data only)")
+    p.add_argument("--val-samples", type=int, default=8,
+                   help="with --data and --eval-every: hold out the last N "
+                        "samples for detection-mAP eval (never trained on)")
     p.add_argument("--full-size", action="store_true",
                    help="full 400x400 config instead of the tiny smoke config")
     p.add_argument("--seed", type=int, default=0)
@@ -190,6 +304,10 @@ def main(argv=None) -> None:
                         "backward pass instead of saving)")
     p.add_argument("--accum", type=int, default=1,
                    help="gradient-accumulation microbatches per step")
+    p.add_argument("--bf16", action="store_true",
+                   help="mixed-precision training: bf16 canvas, RPN and "
+                        "head; f32 parameters, optimizer, BN statistics, "
+                        "losses and checkpoints")
     p.add_argument("--ema", type=float, default=0.0,
                    help="parameter-EMA decay (e.g. 0.999); 0 disables. "
                         "Evals run on raw AND EMA weights; checkpoints "
@@ -214,11 +332,15 @@ def main(argv=None) -> None:
                    help="input-pipeline depth: batches built ahead in a "
                         "background thread and moved to the device there "
                         "(0 = synchronous)")
-    args = p.parse_args(argv)
+    return p.parse_args(argv)
 
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     config = PillarsConfig() if args.full_size else tiny_config()
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
-                       batch_size=args.batch)
+                       batch_size=args.batch,
+                       compute_dtype="bfloat16" if args.bf16 else "float32")
     if args.batch % args.accum:
         raise SystemExit(f"--batch {args.batch} must divide by --accum "
                          f"{args.accum}")
@@ -231,7 +353,14 @@ def main(argv=None) -> None:
         start = state.step
     device = next(state.model.parameters()).device
 
-    batches = synthetic_batches(config, tcfg, seed=args.seed)
+    eval_fn = None
+    if args.data:
+        batches, eval_fn = dataset_stream(args, config, tcfg)
+    else:
+        if args.cbgs > 0:
+            print("warning: --cbgs needs --data; ignored on the synthetic "
+                  "path", file=sys.stderr)
+        batches = synthetic_batches(config, tcfg, seed=args.seed)
     if start:
         # the stream is a pure function of (seed, config): dropping the
         # first `start` batches, before any is moved to the device, replays
@@ -239,8 +368,7 @@ def main(argv=None) -> None:
         batches = itertools.islice(batches, start, None)
     if args.prefetch > 0:
         batches = device_prefetch(batches, size=args.prefetch, device=device)
-    eval_fn = None
-    if args.eval_every > 0:
+    if eval_fn is None and args.eval_every > 0 and not args.data:
         eval_fn = make_synthetic_eval_fn(config, num_scenes=args.eval_scenes,
                                          seed=args.seed + 100_000)
 
@@ -261,10 +389,12 @@ def main(argv=None) -> None:
                        resumed_at=start, device=kind,
                        full_size=args.full_size, remat=args.remat,
                        accum=args.accum, prefetch=args.prefetch,
+                       compute_dtype=tcfg.compute_dtype, data=args.data,
                        params=sum(x.numel()
                                   for x in state.model.parameters()))
-            step_fn = make_train_step(config, remat=args.remat,
-                                      accum_steps=args.accum)
+            step_fn = make_train_step(
+                config, remat=args.remat, accum_steps=args.accum,
+                compute_dtype=getattr(torch, tcfg.compute_dtype))
             fit(state, batches, steps=max(0, args.steps - start),
                 step_fn=step_fn, config=config, logger=logger,
                 ckpt_path=ckpt_path, eval_fn=eval_fn,

@@ -38,8 +38,8 @@ class TrainConfig:
     warmup_frac: float = 0.1
     max_gt_boxes: int = 64   # static GT padding per sweep
     batch_size: int = 8
-    # "float32" or "bfloat16": model-activation dtype for the train step;
-    # the port trains in float32 only so far
+    # "float32" or "bfloat16": model-activation dtype for the train step
+    # (make_train_step(compute_dtype=)); the master state stays float32
     compute_dtype: str = "float32"
 
 
@@ -194,8 +194,9 @@ def create_train_state(config: PillarsConfig, tcfg: TrainConfig,
     on ``device`` (the card unless the CPU is asked for)."""
     from tpu_pillars_torch.detector import resolve_device
 
-    if tcfg.compute_dtype != "float32":
-        raise NotImplementedError("the port trains in float32 only")
+    if tcfg.compute_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
+                         f"got {tcfg.compute_dtype!r}")
     device = resolve_device(device)
     model = PointPillars(config)
     if state_dict is None:

@@ -12,10 +12,16 @@ runs on its accelerator):
          -> global-norm clip + AdamW (``train.state.AdamW``)
 
 The forward and backward run under ``models.pointpillars.full_fp32`` (no
-TF32 in cuDNN or cuBLAS), like the f32 reference. BatchNorm running
-statistics are updated by the step itself from the moments the forward
-returns (momentum 0.99, biased variance), once per microbatch — never inside
-a checkpointed block, whose forward runs twice under remat.
+TF32 in cuDNN or cuBLAS), like the f32 reference. ``compute_dtype=
+torch.bfloat16`` is the JAX package's mixed precision on its fused path:
+the fused PFN stays f32, its rows are cast to bf16 before K3 (which writes
+a bf16 canvas), the RPN and the head run in bf16 (BatchNorm moments in
+f32), and the head returns f32 to f32 losses; the parameters, running
+statistics and AdamW moments stay f32, and the gradients reach them
+through the casts. BatchNorm running statistics are updated by the step
+itself from the moments the forward returns (momentum 0.99, biased
+variance), once per microbatch — never inside a checkpointed block, whose
+forward runs twice under remat.
 """
 
 from __future__ import annotations
@@ -85,7 +91,8 @@ class _Phases:
 
 
 def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
-                    remat=True, accum_steps: int = 1, assigner=None):
+                    remat=True, accum_steps: int = 1, assigner=None,
+                    compute_dtype=torch.float32):
     """Returns step(state, batch, split=None) -> (state, LossBreakdown).
 
     The step updates ``state.model`` and its optimizer in place and returns
@@ -104,9 +111,15 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
     assigner: (gt_boxes, gt_classes, gt_valid) -> batched Targets; the
     windowed assigner (K5) by default.
 
+    compute_dtype: torch.float32 (default) or torch.bfloat16, the type of
+    the canvas, the RPN and the head (see the module docstring).
+
     split: a dict that receives the step's synchronised host-clock split
     in ms (frontend, assign, forward, backward, optimizer)."""
     remat_pfn, remat_rpn = remat_flags(remat)
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"compute_dtype must be torch.float32 or "
+                        f"torch.bfloat16, got {compute_dtype}")
     assign_b = assigner or make_windowed_assigner(config, max_gt_per_class)
 
     def grads_of(model, batch: TrainBatch, phases: _Phases):
@@ -126,10 +139,12 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
             feats, pid, cnt, b_mean, b_var = (
                 checkpoint(pfn_feats, *args, use_reentrant=False)
                 if remat_pfn else pfn_feats(*args))
-            canvas = scatter_to_bev_diff(feats, pid, cnt > 0.0, config)
-            feat, moments = model.train_features_from_canvas(canvas,
-                                                             remat_rpn)
-            cls_fm, box_fm, dir_fm = model.head.feature_major(feat)
+            canvas = scatter_to_bev_diff(feats.to(compute_dtype), pid,
+                                         cnt > 0.0, config, compute_dtype)
+            feat, moments = model.train_features_from_canvas(
+                canvas, remat_rpn, compute_dtype)
+            cls_fm, box_fm, dir_fm = model.head.feature_major(feat,
+                                                              compute_dtype)
             losses = detection_loss_fm(cls_fm, box_fm, dir_fm, targets,
                                        config)
             total = losses.total.mean()
