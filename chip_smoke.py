@@ -64,6 +64,12 @@ line:
      bf16 (K3's bf16 -> bf16 instance) held to the same tolerance; phase 5
      prints the bf16 held-out and TTA mAP beside f32's (finite, no other
      gate).
+     3f. The anchor-major API: ``train.step.make_eval_forward`` (K1,
+     ``decorate``, the PillarFeatureNet on its running statistics, K3, RPN,
+     ``SSDHead``) and ``ops.postprocess.postprocess`` on the golden scenes
+     against the JAX detections; on the batch, ``postprocess_t`` equal to
+     ``postprocess`` bit for bit and ``nms_impl="fixpoint"`` equal to
+     "pallas" (K4); K1, K3 and K4 launched, K2 and K6 not.
   5. Evaluation (run before training): the held-out mAP of the 8 golden
      scenes on the card (``evaluate_scenes``) within 1e-3 of the port's
      scorer on the golden JAX detections; ``predict_tta`` (4 views, WBF)
@@ -105,6 +111,15 @@ line:
      --data ... --full-size --bf16`` for 6 steps at batch 8 must log finite
      losses and a held-out mAP; the loader's ms a batch is printed beside
      the bf16 step's.
+     4e. Classic training (``make_train_step(fused_frontend=False)``): on
+     the golden batch the dense class-blocked assigner's targets within
+     0.1% of the anchors of the JAX targets, three classic steps given the
+     JAX targets within rtol 2e-3 of the JAX losses (num_pos equal) and
+     every running statistic, the PillarFeatureNet's included, within rtol
+     1e-2 / atol 1e-4; ``fit`` at batch 8 with the dense assigner and with
+     K5 (f32, remat "all"), remat "off" and bf16 (step ms, sweeps/s, peak
+     memory, split); K1 and K3 (its bf16 -> bf16 instance in bf16, its f32
+     one not) must launch, K2 not, K5 with K5 only.
 
 The line before the last is a JSON object ``{"kernels": [...]}``, each
 kernel with its launches on the path that runs it (serving: K1-K4, classic
@@ -504,6 +519,9 @@ def main() -> None:
     # ---- phase 3e: bf16 serving (K3's f32 -> bf16 instance)
     launches["bev_scatter_f32_bf16"] = bf16_serving(cfg, points, counts,
                                                     clouds)
+
+    # ---- phase 3f: the anchor-major API (eval forward + postprocess)
+    anchor_major_serving(cfg, points, counts, golden)
     del points, counts
     torch.cuda.empty_cache()
 
@@ -535,6 +553,11 @@ def main() -> None:
 
     # ---- phase 4d: the documented Lyft run, in bf16
     lyft_run(cfg, card, step_ms["all"])
+
+    # ---- phase 4e: classic training, the dense assigner and K5
+    classic = classic_training(cfg, dev)
+    print(f"launches in classic training (f32, remat all, K5): "
+          f"{ {k: classic[k] for k in ('emit', 'bev_scatter', 'assign')} }")
 
     replaces = {"emit": "tpu_pillars/ops/emit_pallas.py:113",
                 "fused_pfn": "tpu_pillars/ops/fused_pfn.py:102",
@@ -861,36 +884,43 @@ def golden_batch(g, cfg, dev):
                             g["gt_valid"]), dev)
 
 
-def train_golden(cfg, dev):
+def train_golden(cfg, dev, classic=False):
     """The training step from the trained checkpoint on the golden batch
-    against the JAX package: the port's own targets against the JAX ones
-    (positives equal outside 0.1% of the anchors), then three steps given
-    the JAX targets against the JAX losses (rtol 2e-3) and running
-    statistics (rtol 1e-2, atol 1e-4)."""
+    against the JAX package (whose golden steps ran its classic front end
+    and dense assigner): the port's own targets (K5's, or with ``classic``
+    the dense assigner's) against the JAX ones (positives equal outside
+    0.1% of the anchors), then three steps (fused, or with ``classic`` the
+    classic front end) given the JAX targets against the JAX losses (rtol
+    2e-3, num_pos equal) and running statistics (rtol 1e-2, atol 1e-4)."""
     import numpy as np
     import torch
 
-    from tpu_pillars_torch.ops.assign import make_windowed_assigner
     from tpu_pillars_torch.train.state import TrainConfig, create_train_state
-    from tpu_pillars_torch.train.step import make_train_step
+    from tpu_pillars_torch.train.step import make_assigner, make_train_step
     from tpu_pillars_torch.weights import (
         flax_from_params, load_flax_msgpack, params_from_flax,
     )
 
+    label = "classic, dense assigner" if classic else "fused, K5"
     g = np.load(TRAIN_GOLDEN)
     batch = golden_batch(g, cfg, dev)
     B = batch.points.shape[0]
     jax_targets = golden_targets(g, cfg, dev)
-    own = make_windowed_assigner(cfg)(batch.gt_boxes, batch.gt_classes,
-                                      batch.gt_valid)
+    assign = make_assigner(cfg, "dense" if classic else "windowed")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    own = assign(batch.gt_boxes, batch.gt_classes, batch.gt_valid)
+    torch.cuda.synchronize()
+    assign_ms = (time.perf_counter() - t) * 1e3
     pos = own.reg_weights > 0
     want_pos = jax_targets.reg_weights > 0
     flips = int((pos != want_pos).sum())
     if flips > 1e-3 * pos.numel():
-        fail(f"golden positives: {flips} of {pos.numel()} anchors differ "
-             f"from the JAX targets")
-    print(f"golden targets: {int(pos.sum())} positives (JAX "
-          f"{int(want_pos.sum())}), {flips} anchors differ")
+        fail(f"golden positives ({label}): {flips} of {pos.numel()} anchors "
+             f"differ from the JAX targets")
+    print(f"golden targets ({label}): {int(pos.sum())} positives (JAX "
+          f"{int(want_pos.sum())}), {flips} anchors differ; assigned in "
+          f"{assign_ms:.2f} ms (batch {B}, first call)")
 
     tree = load_flax_msgpack(CKPT)
     variables = {"params": tree["params"], "batch_stats": tree["batch_stats"]}
@@ -898,19 +928,23 @@ def train_golden(cfg, dev):
                        total_steps=int(g["total_steps"]), batch_size=B)
     state = create_train_state(cfg, tcfg, state_dict=params_from_flax(
         variables, cfg))
-    step = make_train_step(cfg, assigner=lambda *gt: jax_targets)
+    front = dict(fused_frontend=False) if classic else {}
+    step = make_train_step(cfg, assigner=lambda *gt: jax_targets, **front)
+    worst_rel = np.zeros(4)
     for i in range(len(g["losses"])):
         state, losses = step(state, batch)
         got = [float(x) for x in losses]
         want = g["losses"][i]
-        print(f"golden train step {i + 1}: loss {got[0]:.6f} (JAX "
+        print(f"golden train step {i + 1} ({label}): loss {got[0]:.6f} (JAX "
               f"{want[0]:.6f}), cls {got[1]:.6f} ({want[1]:.6f}), loc "
               f"{got[2]:.6f} ({want[2]:.6f}), dir {got[3]:.6f} "
               f"({want[3]:.6f}), num_pos {got[4]:.0f} ({want[4]:.0f})")
         if not np.isfinite(got).all() or got[4] != want[4] or \
                 abs(got[0] - want[0]) > 2e-3 * abs(want[0]):
-            fail(f"golden train step {i + 1}: loss {got[0]} vs JAX "
-                 f"{want[0]} (rtol 2e-3)")
+            fail(f"golden train step {i + 1} ({label}): loss {got[0]} vs "
+                 f"JAX {want[0]} (rtol 2e-3)")
+        worst_rel = np.maximum(worst_rel, np.abs(
+            np.subtract(got[:4], want[:4])) / np.abs(want[:4]))
     stats = flax_from_params(state.model.state_dict(), cfg)["batch_stats"]
     worst = 0.0
     for key in (k for k in g.files if k.startswith("stats/")):
@@ -919,26 +953,30 @@ def train_golden(cfg, dev):
             node = node[part]
         want = g[key]
         if not np.allclose(node, want, rtol=1e-2, atol=1e-4):
-            fail(f"golden running statistic {key} differs: max |d| "
-                 f"{np.abs(node - want).max():.3e}")
+            fail(f"golden running statistic {key} ({label}) differs: max "
+                 f"|d| {np.abs(node - want).max():.3e}")
         worst = max(worst, float(np.abs(node - want).max()))
-    print(f"golden training: 3 steps match the JAX losses; running stats "
-          f"max |d| {worst:.2e}")
+    print(f"golden training ({label}): 3 steps match the JAX losses, worst "
+          f"relative |d| total / cls / loc / dir "
+          f"{' / '.join(f'{x:.2e}' for x in worst_rel)}; running stats "
+          f"(the PFN's bn included) max |d| {worst:.2e}")
     # the port's own step (its own targets), for the record
     state = create_train_state(cfg, tcfg, state_dict=params_from_flax(
         variables, cfg))
-    _, losses = make_train_step(cfg)(state, batch)
-    print(f"golden step 1 with the port's own targets: loss "
+    _, losses = make_train_step(cfg, assigner=assign, **front)(state, batch)
+    print(f"golden step 1 ({label}) with the port's own targets: loss "
           f"{float(losses.total):.6f} (JAX {g['losses'][0][0]:.6f})")
     del state
     torch.cuda.empty_cache()
 
 
-def train_fit(cfg, dev, remat, dtype=None):
+def train_fit(cfg, dev, remat, dtype=None, classic=False,
+              assigner="windowed"):
     """``train.loop.fit`` at batch 8 from a seeded random model, in f32 or
-    ``dtype``: median step time, sweeps/s, peak memory, and a synchronised
-    split of extra steps. Returns the launches of the timed steps and the
-    median step ms."""
+    ``dtype``, on the fused front end or (``classic``) the classic one,
+    with the ``assigner`` named: median step time, sweeps/s, peak memory,
+    and a synchronised split of extra steps. Returns the launches of the
+    timed steps and the median step ms."""
     import numpy as np
     import torch
 
@@ -949,10 +987,14 @@ def train_fit(cfg, dev, remat, dtype=None):
 
     dtype = dtype or torch.float32
     label = f"remat {remat}, {str(dtype)[6:]}"
+    if classic:
+        label = f"classic, {assigner} assigner, {label}"
     tcfg = TrainConfig(learning_rate=1e-3, total_steps=TRAIN_STEPS,
                        batch_size=BATCH, compute_dtype=str(dtype)[6:])
     state = create_train_state(cfg, tcfg, seed=SEED)
-    step = make_train_step(cfg, remat=remat, compute_dtype=dtype)
+    step = make_train_step(cfg, remat=remat, compute_dtype=dtype,
+                           assigner=assigner,
+                           fused_frontend=not classic)
     times, last = [], []
 
     def timed(st, batch):
@@ -973,11 +1015,16 @@ def train_fit(cfg, dev, remat, dtype=None):
     peak = torch.cuda.max_memory_allocated()
     scatter = ("bev_scatter" if dtype == torch.float32
                else "bev_scatter_bf16")
-    for name in ("emit", scatter, "assign"):
+    for name in ("emit", scatter) + (("assign",) if assigner != "dense"
+                                      else ()):
         if launches[name] == 0:
             fail(f"kernel {name} did not launch during training ({label})")
     if dtype != torch.float32 and launches["bev_scatter"]:
         fail(f"K3's f32 instance launched in {label} training")
+    if classic and launches["fused_pfn"]:
+        fail(f"K2 launched in {label} training")
+    if assigner == "dense" and launches["assign"]:
+        fail(f"K5 launched in {label} training")
     if not np.isfinite(last).all():
         fail(f"training ({label}) gave a non-finite loss: {last}")
     if not all(t.dtype == torch.float32
@@ -1002,6 +1049,159 @@ def train_fit(cfg, dev, remat, dtype=None):
     del state
     torch.cuda.empty_cache()
     return launches, med
+
+
+class AnchorMajorDetector:
+    """``predict`` through the anchor-major API: the classic
+    ``Detector``'s padding and model, ``train.step.make_eval_forward``
+    (K1, ``decorate``, the PillarFeatureNet, K3, RPN, ``SSDHead``), then
+    ``ops.postprocess.postprocess`` with ``nms_impl``."""
+
+    def __init__(self, det, nms_impl="auto"):
+        import numpy as np
+        import torch
+
+        from tpu_pillars_torch.ops.anchors import make_anchors
+        from tpu_pillars_torch.train.step import make_eval_forward
+
+        self.det, self.config, self.nms_impl = det, det.config, nms_impl
+        self.forward = make_eval_forward(det.config)
+        anchors, anchor_cls = make_anchors(det.config)
+        self.anchors = torch.from_numpy(np.array(anchors)).to(det.device)
+        self.anchor_cls = torch.from_numpy(
+            np.array(anchor_cls, np.int64)).to(det.device)
+
+    def outputs(self, points, counts):
+        return self.forward(self.det.model, points, counts)
+
+    def detections(self, out, nms_impl=None, layout="anchor"):
+        from tpu_pillars_torch.ops import postprocess
+
+        impl = nms_impl or self.nms_impl
+        if layout == "feature":
+            return postprocess.postprocess_t(
+                *(t.transpose(1, 2) for t in out), self.anchors,
+                self.anchor_cls, self.config, impl)
+        return postprocess.postprocess(*out, self.anchors, self.anchor_cls,
+                                       self.config, impl)
+
+    def predict(self, cloud):
+        import numpy as np
+        import torch
+
+        from tpu_pillars_torch.detector import (
+            pack_detections, packed_to_boxes,
+        )
+
+        padded, n = self.det.pad_points(cloud)
+        pts = torch.from_numpy(padded[None]).to(self.det.device)
+        cnt = torch.from_numpy(np.asarray([n], np.int64)).to(self.det.device)
+        det = self.detections(self.outputs(pts, cnt))
+        return packed_to_boxes(pack_detections(det)[0].cpu().numpy(),
+                               self.config)
+
+
+def anchor_major_serving(cfg, points, counts, golden):
+    """Phase 3f: the anchor-major API on the trained checkpoint. The golden
+    scenes through ``make_eval_forward`` + ``postprocess`` must match the
+    JAX detections (``golden_check``); on the serving batch,
+    ``postprocess_t`` must equal ``postprocess`` bit for bit and
+    ``nms_impl="fixpoint"`` keep the same detections as "pallas" (K4);
+    K1, K3 and K4 must launch, K2 and K6 not. Returns the launches of the
+    batch call."""
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.detector import Detector
+
+    det = Detector.from_checkpoint(cfg, CKPT, fused_frontend=False,
+                                   use_pallas_pfn=False)
+    am = AnchorMajorDetector(det)
+    golden_check(am, golden, "anchor-major, classic")
+    _build.reset_launches()
+    out = am.outputs(points, counts)
+    dets = am.detections(out)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"launches on the anchor-major path (batch {BATCH}): {launches}")
+    for name in ("emit", "bev_scatter", "nms_overlap"):
+        if launches[name] == 0:
+            fail(f"kernel {name} did not launch on the anchor-major path")
+    for name in ("fused_pfn", "pfn"):
+        if launches[name]:
+            fail(f"kernel {name} launched on the anchor-major path")
+    if int(dets.valid.sum()) == 0:
+        fail("the anchor-major batch call detected nothing")
+    for label, other in (
+            ("postprocess_t", am.detections(out, layout="feature")),
+            ("nms_impl='fixpoint'", am.detections(out, "fixpoint"))):
+        for field, a, b in zip(dets._fields, dets, other):
+            if not torch.equal(a, b):
+                fail(f"anchor-major {label} differs from postprocess with "
+                     f"K4 in {field}")
+    print(f"anchor-major batch: {int(dets.valid.sum())} detections; "
+          f"postprocess_t and nms_impl='fixpoint' equal postprocess (K4) "
+          f"bit for bit")
+    fwd_ms = cuda_ms(lambda: am.outputs(points, counts), 5)
+    post_ms = {impl: cuda_ms(lambda: am.detections(out, impl), 5)
+               for impl in ("pallas", "fixpoint")}
+    print(f"anchor-major timings (CUDA events, batch {BATCH}): eval forward "
+          f"{fwd_ms:.3f} ms, postprocess with K4 {post_ms['pallas']:.3f} ms, "
+          f"with the fixpoint {post_ms['fixpoint']:.3f} ms")
+
+    del det, am, out, dets
+    torch.cuda.empty_cache()
+    return launches
+
+
+def classic_training(cfg, dev):
+    """Phase 4e: classic training at the full config, batch 8 — the golden
+    steps on the classic front end with the dense assigner's targets held
+    to the JAX ones, then ``fit`` timed with the dense assigner and with
+    K5 (f32, remat "all"), remat "off" and bf16 (K5). Returns the launches
+    of the f32 remat-"all" K5 run."""
+    import torch
+
+    from tpu_pillars_torch.train.loop import synthetic_batches
+    from tpu_pillars_torch.train.state import TrainConfig
+    from tpu_pillars_torch.train.step import batch_to_device, make_assigner
+
+    train_golden(cfg, dev, classic=True)
+    # the two assigners alone on the timed runs' first batch: time, the
+    # transient memory above what is allocated, and how far apart
+    batch = batch_to_device(next(synthetic_batches(
+        cfg, TrainConfig(batch_size=BATCH), seed=SEED)), dev)
+    gt = (batch.gt_boxes, batch.gt_classes, batch.gt_valid)
+    targets = {}
+    for name in ("dense", "windowed"):
+        assign = make_assigner(cfg, name)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        targets[name] = assign(*gt)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        ms = cuda_ms(lambda: assign(*gt), 3, reps=3)
+        print(f"assigner {name} (batch {BATCH}, {int(batch.gt_valid.sum())} "
+              f"valid GT): {ms:.3f} ms (CUDA events, median of 3 x 3), "
+              f"{peak:.2f} GiB transient")
+    pos = [t.reg_weights > 0 for t in targets.values()]
+    flips = int((pos[0] != pos[1]).sum())
+    if flips > 1e-3 * pos[0].numel():
+        fail(f"dense and K5 positives differ on {flips} anchors")
+    print(f"assigners: {int(pos[0].sum())} dense and {int(pos[1].sum())} K5 "
+          f"positives, {flips} of {pos[0].numel()} anchors differ")
+    del batch, gt, targets, pos
+    torch.cuda.empty_cache()
+    runs = {}
+    for key, remat, dtype, assigner in (
+            ("dense", "all", None, "dense"),
+            ("k5", "all", None, "windowed"),
+            ("off", "off", None, "windowed"),
+            ("bf16", "all", torch.bfloat16, "windowed")):
+        runs[key], _ = train_fit(cfg, dev, remat, dtype=dtype, classic=True,
+                                 assigner=assigner)
+    return runs["k5"]
 
 
 def bf16_scatter_row(cfg, name, rows_in, pid, mask, canvas32):

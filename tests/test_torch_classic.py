@@ -4,8 +4,8 @@ on the CPU:
 * the K6 PFN's plain version against the JAX ``pfn_fused`` kernel
   (interpret mode), at tests/test_pfn_pallas.py's atol 2e-5, with a pillar
   count that no block size divides and empty pillars;
-* the plain PillarFeatureNet (``PFNWeights.forward``) against the flax
-  ``PillarFeatureNet`` (atol 2e-5);
+* the plain PillarFeatureNet (``models.pfn.PillarFeatureNet.forward``)
+  against the flax ``PillarFeatureNet`` (atol 2e-5);
 * ``pillarize_batch_emit`` (K1 on raw points + ``decorate``) against the JAX
   ``pillarize_batch`` and the port's own ``pillarize_batch``, bit for bit;
 * the classic ``Detector`` against the JAX ``Detector(fused_frontend=
@@ -34,7 +34,7 @@ from torch_port_util import (
 )
 from tpu_pillars_torch import config as tconfig
 from tpu_pillars_torch import detector as tdet
-from tpu_pillars_torch.models.pointpillars import PFNWeights
+from tpu_pillars_torch.models import pfn as tpfn
 from tpu_pillars_torch.ops import emit as temit
 from tpu_pillars_torch.ops import voxelize as tvox
 from tpu_pillars_torch.ops.fused_pfn import fold_bn
@@ -90,7 +90,7 @@ def test_pfn_module_matches_flax(rng):
     batched = (feats.reshape(3, 100, 16, 9), mask.reshape(3, 100, 16))
     want = PillarFeatureNet(channels=64, use_running_average=True).apply(
         variables, *(jnp.asarray(x) for x in batched))
-    module = PFNWeights(9, 64)
+    module = tpfn.PillarFeatureNet(9, 64)
     module.load_state_dict({
         "kernel": torch.from_numpy(w), "bn.weight": torch.from_numpy(scale),
         "bn.bias": torch.from_numpy(bias),

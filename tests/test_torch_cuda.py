@@ -31,7 +31,9 @@ not tied within 2e-5; the detector's packed output on the card against the
 same detector on the CPU at the tolerance of
 tests/test_detector_e2e.py::test_jitted_pipeline_matches_cpu_reference; two
 training steps on the card against the same steps on the CPU (loss rtol
-1e-3, equal positives); a full-config full checkpoint restored onto the
+1e-3, equal positives), fused and classic (K1, K3, and K5 or the dense
+assigner); the dense assigner's targets on the card against K5's and
+against the CPU's (tests/test_torch_assign.py's ``_compare`` contract); a full-config full checkpoint restored onto the
 card bit for bit, and EMA updates on the card equal to the same updates on
 the CPU. K3, K4 and K11 also write every element of memory
 that held NaN / 0xFF before the call; K3's bf16 instances (f32 rows and
@@ -1182,6 +1184,90 @@ def test_train_steps_on_card_match_cpu(dev):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert int(a.num_pos) == int(b.num_pos) > 0
         np.testing.assert_allclose(float(a.total), float(b.total), rtol=1e-3)
+
+
+@pytest.mark.parametrize("assigner", ["windowed", "dense"])
+def test_classic_train_steps_on_card_match_cpu(dev, assigner):
+    """The classic step (K1 on the raw points, the PillarFeatureNet on
+    batch statistics, K3) on the card against the same steps on the CPU,
+    the plain versions: loss rtol 1e-3, equal positives; K1 and K3 launch
+    once a step (K5 too with the windowed assigner)."""
+    from tpu_pillars_torch.data.synthetic import (
+        make_scene, scenes_to_train_batch,
+    )
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+    from tpu_pillars_torch.train.step import batch_to_device, make_train_step
+
+    rng = np.random.default_rng(3)
+    scenes = [make_scene(rng, CFG, num_objects=6, points_per_object=60,
+                         clutter=400) for _ in range(2)]
+    arrays = scenes_to_train_batch(scenes, CFG, 16)
+    tcfg = TrainConfig(batch_size=2, max_gt_boxes=16, total_steps=10)
+    sd = _random_state_dict(CFG, 6)
+    out = {}
+    for where in ("cuda", "cpu"):
+        state = create_train_state(CFG, tcfg, device=where, state_dict=sd)
+        step = make_train_step(CFG, fused_frontend=False, assigner=assigner)
+        _build.reset_launches()
+        out[where] = [step(state, batch_to_device(arrays, where))[1]
+                      for _ in range(2)]
+        if where == "cuda":
+            for name in ("emit", "bev_scatter"):
+                assert _build.LAUNCHES[name] == 2, _build.LAUNCHES
+            assert _build.LAUNCHES["assign"] == \
+                (2 if assigner == "windowed" else 0), _build.LAUNCHES
+            assert _build.LAUNCHES["fused_pfn"] == 0, _build.LAUNCHES
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert int(a.num_pos) == int(b.num_pos) > 0
+        np.testing.assert_allclose(float(a.total), float(b.total), rtol=1e-3)
+
+
+def _compare_targets(got, want, max_flip_frac):
+    """tests/test_torch_assign.py's ``_compare`` on two batched Targets of
+    numpy arrays: positives equal outside a boundary set of at most
+    ``max_flip_frac`` of the anchors, and the targets equal outside it."""
+    pos_g = got.reg_weights > 0
+    pos_w = want.reg_weights > 0
+    flip = pos_g != pos_w
+    assert flip.mean() <= max_flip_frac, flip.mean()
+    reg_diff = (np.abs(got.reg_targets - want.reg_targets).max(axis=1)
+                > 1e-4) & ~flip & pos_g
+    boundary = flip | reg_diff
+    assert boundary.mean() <= max_flip_frac, boundary.mean()
+    ok = ~boundary
+    np.testing.assert_allclose(got.reg_targets * ok[:, None, :],
+                               want.reg_targets * ok[:, None, :], atol=1e-4)
+    np.testing.assert_array_equal(got.dir_targets * ok,
+                                  want.dir_targets * ok)
+    np.testing.assert_array_equal(got.cls_onehot * ok[:, None, :],
+                                  want.cls_onehot * ok[:, None, :])
+    assert ((got.cls_weights != want.cls_weights) & ok).mean() \
+        <= max_flip_frac
+    assert abs(float(got.num_pos.sum()) - float(want.num_pos.sum())) <= \
+        max(4, flip.sum())
+
+
+@pytest.mark.parametrize("case", ["random", "crowd"])
+def test_dense_targets_on_card_match_k5_and_cpu(dev, case):
+    """The dense class-blocked assigner on the card against K5's targets on
+    the card (the ``_compare`` contract, 0.1% of the anchors) and against
+    itself on the CPU (the same contract: the card's sin, cos and sums
+    round differently)."""
+    from tpu_pillars_torch.ops.assign import make_windowed_assigner
+    from tpu_pillars_torch.ops.target_assigner import make_classwise_assigner
+
+    gt, cls, valid = ASSIGN_CASES[case][0](np.random.default_rng(11))
+    args = [torch.from_numpy(x) for x in (gt, cls.astype(np.int64), valid)]
+
+    def run(assign, where):
+        t = assign(*(x.to(where) for x in args))
+        return type(t)(*(x.cpu().numpy() for x in t))
+
+    dense = make_classwise_assigner(CFG)
+    got = run(dense, dev)
+    assert got.num_pos.sum() > 0
+    _compare_targets(got, run(make_windowed_assigner(CFG), dev), 1e-3)
+    _compare_targets(got, run(dense, "cpu"), 1e-3)
 
 
 def test_full_checkpoint_round_trip_on_card(dev, tmp_path):

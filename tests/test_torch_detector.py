@@ -145,7 +145,9 @@ def test_port_imports_no_jax():
                    "reference_cpu/postprocess.py", "train/elastic.py",
                    "train/ema.py", "utils/logging.py",
                    "utils/tensorboard.py", "train/data.py",
-                   "data/augment.py", "data/gt_sampler.py"):
+                   "data/augment.py", "data/gt_sampler.py",
+                   "models/pfn.py", "models/head.py",
+                   "ops/target_assigner.py", "ops/postprocess.py"):
         assert os.path.join("tpu_pillars_torch", module) in rel, module
     for path in files:
         for mod in _imports(path):

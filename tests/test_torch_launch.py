@@ -333,3 +333,18 @@ def test_training_step_passes_ascending_ids(recorded_scatters):
     assert len(recorded_scatters) == 1
     pid, mask, cfg = recorded_scatters[0]
     _assert_ascending(pid, mask, cfg.grid_h * cfg.grid_w)
+
+
+def test_classic_training_step_passes_ascending_ids(recorded_scatters):
+    """The classic step's K3 (``scatter_to_bev_auto`` from the PillarBatch
+    coords, masked pillars at zero coords) keeps the contract too."""
+    tcfg = TrainConfig(batch_size=2, total_steps=1)
+    state = create_train_state(CFG, tcfg, seed=0, device="cpu")
+    pts, n, *gt = next(synthetic_batches(CFG, tcfg, seed=5))
+    n = np.minimum(n, [400, 50])         # leave pillars unfilled
+    make_train_step(CFG, fused_frontend=False)(
+        state, batch_to_device((pts, n, *gt), "cpu"))
+    assert len(recorded_scatters) == 1
+    pid, mask, cfg = recorded_scatters[0]
+    assert not mask.all()
+    _assert_ascending(pid, mask, cfg.grid_h * cfg.grid_w)

@@ -17,10 +17,10 @@ Then the RPN and the wire head, in ``dtype`` (float32 by default, or
 bfloat16 with the JAX package's cast points: the front end stays f32 up to
 K3, which writes the bf16 canvas; the wire stays f32). Stage 2 (wire ->
 detections): sigmoid, per-class threshold and top-k, decode, class-aware
-rotated NMS on the K4 overlap matrix. :func:`build_canvas_fn`,
-:func:`build_model_fn`, :func:`build_postprocess_fn` and
-:func:`build_forward_fn` are the stages as plain functions over a loaded
-``PointPillars``; ``Detector`` runs stage 1
+rotated NMS (``nms_impl``: the K4 overlap matrix on the card by
+default). :func:`build_canvas_fn`, :func:`build_model_fn`,
+:func:`build_postprocess_fn` and :func:`build_forward_fn` are the stages as
+plain functions over a loaded ``PointPillars``; ``Detector`` runs stage 1
 through :func:`build_model_fn` and stage 2 through
 :func:`build_postprocess_fn`.
 Everything runs on ``device``; the only host transfers are the padded cloud
@@ -47,7 +47,9 @@ from tpu_pillars_torch.ops.bev import scatter_to_bev, scatter_to_bev_auto
 from tpu_pillars_torch.ops.emit import pillarize_batch_emit
 from tpu_pillars_torch.ops.fused_pfn import pillarize_pfn_fused
 from tpu_pillars_torch.ops.pfn import pfn_fused
-from tpu_pillars_torch.ops.postprocess import Detections, postprocess_w
+from tpu_pillars_torch.ops.postprocess import (
+    Detections, postprocess_w, resolve_nms_impl,
+)
 from tpu_pillars_torch.utils.truncation import TruncationStats
 
 
@@ -101,15 +103,13 @@ def build_canvas_fn(model: PointPillars, config: PillarsConfig,
                                                         w, b, config)
             return scatter_to_bev(feats, pid_per, pmask, config, dtype)
         batch = pillarize_batch_emit(points, num_points, config)
+        if not use_pallas_pfn:
+            return model.canvas_from_batch(batch, dtype)
         B, P, N, D = batch.features.shape
-        if use_pallas_pfn:
-            flat = pfn_fused(batch.features.reshape(B * P, N, D),
-                             batch.mask.reshape(B * P, N), w, b)
-            feats = flat.reshape(B, P, -1)
-        else:
-            feats = model.pfn(batch.features, batch.mask, dtype)
-        return scatter_to_bev_auto(feats, batch.coords, batch.pillar_mask,
-                                   config, dtype)
+        flat = pfn_fused(batch.features.reshape(B * P, N, D),
+                         batch.mask.reshape(B * P, N), w, b)
+        return scatter_to_bev_auto(flat.reshape(B, P, -1), batch.coords,
+                                   batch.pillar_mask, config, dtype)
 
     return canvas_fn
 
@@ -139,10 +139,15 @@ def build_model_fn(model: PointPillars, config: PillarsConfig,
     return run_model
 
 
-def build_postprocess_fn(config: PillarsConfig, device=None):
+def build_postprocess_fn(config: PillarsConfig, device=None,
+                         nms_impl: str = "auto"):
     """Stage 2: f(own, box_p, dir_p) -> Detections, with the anchors made
-    once on ``device`` (None: the card, as :func:`resolve_device`)."""
+    once on ``device`` (None: the card, as :func:`resolve_device`).
+    nms_impl: "auto" (K4 on the card, the dense IoU on the CPU), resolved
+    here, where an unknown name raises; "pallas" or "fixpoint" names one of
+    the two (on the card "fixpoint" serves only as the check of K4)."""
     device = resolve_device(device)
+    nms_impl = resolve_nms_impl(nms_impl, device)
     anchors, anchor_cls = make_anchors(config)
     anchors_t = torch.from_numpy(np.array(anchors)).to(device)
     anchor_cls_t = torch.from_numpy(
@@ -151,7 +156,7 @@ def build_postprocess_fn(config: PillarsConfig, device=None):
     @torch.no_grad()
     def run_post(own, box_p, dir_p) -> Detections:
         return postprocess_w(own, box_p, dir_p, anchors_t, anchor_cls_t,
-                             config)
+                             config, nms_impl)
 
     return run_post
 
@@ -181,8 +186,13 @@ class Detector:
                  device=None, host_crop: bool = True,
                  wire_buckets: "Optional[tuple]" = None,
                  fused_frontend: Optional[bool] = None,
-                 use_pallas_pfn: bool = True, dtype=torch.float32):
+                 use_pallas_pfn: bool = True, dtype=torch.float32,
+                 nms_impl: str = "auto"):
         """state_dict: ``weights.params_from_flax`` output.
+
+        nms_impl: the NMS of stage 2 (:func:`build_postprocess_fn`): "auto"
+        (default; K4 on the card, the dense fixpoint on the CPU); "pallas"
+        or "fixpoint" names one of the two.
 
         dtype: the compute type of stage 1, ``torch.float32`` (default) or
         ``torch.bfloat16`` (the JAX ``Detector(dtype=jnp.bfloat16)``): the
@@ -229,7 +239,7 @@ class Detector:
                                       use_pallas_pfn=use_pallas_pfn,
                                       fused_frontend=fused_frontend,
                                       dtype=dtype)
-        self._post = build_postprocess_fn(config, self.device)
+        self._post = build_postprocess_fn(config, self.device, nms_impl)
 
     def load_state_dict(self, state_dict: dict) -> None:
         """Serve other weights with the same programs and ``dtype``: copy

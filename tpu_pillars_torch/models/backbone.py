@@ -24,6 +24,7 @@ cast is a no-op.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Sequence
 
 import torch
@@ -33,6 +34,28 @@ from torch.utils.checkpoint import checkpoint
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.99
+
+
+@contextlib.contextmanager
+def full_fp32():
+    """No TF32 in cuDNN convolutions or cuBLAS matmuls inside the block."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (cudnn.allow_tf32, matmul.allow_tf32)
+    cudnn.allow_tf32 = False
+    matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
+
+
+def precision(dtype):
+    """:func:`full_fp32` for float32, nothing for bfloat16."""
+    if dtype == torch.float32:
+        return full_fp32()
+    if dtype == torch.bfloat16:
+        return contextlib.nullcontext()
+    raise TypeError(f"compute dtype must be float32 or bfloat16, got {dtype}")
 
 
 class BatchNorm(nn.Module):

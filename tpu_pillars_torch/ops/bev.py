@@ -154,11 +154,12 @@ def scatter_to_bev_auto(pillar_features, coords, pillar_mask,
     """The classic front end's scatter (``bev_pallas.py``
     ``scatter_to_bev_auto``): (B, P, C) features, (B, P, 2) int32 (row,
     col) coords, (B, P) validity -> (B, H, W, C) canvas through K3, with
-    pid = row * W + col. The reference's version also picks a backend; this
+    pid = row * W + col, differentiable (:func:`scatter_to_bev_diff`) for
+    classic training. The reference's version also picks a backend; this
     one has only K3 and is kept so that the name matches."""
     pid = (coords[..., 0] * config.grid_w + coords[..., 1]).to(torch.int32)
-    return scatter_to_bev(pillar_features, pid, pillar_mask, config,
-                          out_dtype)
+    return scatter_to_bev_diff(pillar_features, pid, pillar_mask, config,
+                               out_dtype)
 
 
 def block_row_ranges(pid_per, pillar_mask, hw: int):

@@ -15,8 +15,10 @@ multiply-adds, so kernel and plain version round alike.
 
 Boxes are packed ``[x, y, z, w, l, h, yaw]`` (z/h are ignored by the BEV
 functions); the quad functions broadcast over leading dims, the pairwise
-ones take (N, 7) x (M, 7). ``ops/iou_tiled.py`` holds K7, the tiled
-variant.
+ones take (N, 7) x (M, 7), :func:`rotated_iou_bev_colchunked` any
+broadcastable leading dims (the dense target assigner's samples and
+classes). ``ops/iou_tiled.py`` holds K7, the
+tiled variant.
 """
 
 from __future__ import annotations
@@ -118,18 +120,67 @@ def convex_quad_intersect_area(qa, qb):
     return torch.clamp(area, min=0.0)
 
 
-def rotated_iou_bev(boxes1, boxes2):
-    """Pairwise rotated BEV IoU. boxes1 (N, 7), boxes2 (M, 7) -> (N, M)."""
-    c1 = corners_bev(boxes1)[:, None]
-    c2 = corners_bev(boxes2)[None, :]
-    inter = convex_quad_intersect_area(c1, c2)
-    a1 = (boxes1[:, 3] * boxes1[:, 4])[:, None]
-    a2 = (boxes2[:, 3] * boxes2[:, 4])[None, :]
+def _iou_broadcast(boxes1, boxes2):
+    """Rotated BEV IoU of boxes1 (..., 7) and boxes2 (..., 7), pair by pair
+    over their broadcast leading dims; the JAX ``rotated_iou_bev``'s
+    operations in its order, with boxes1 first."""
+    inter = convex_quad_intersect_area(corners_bev(boxes1),
+                                       corners_bev(boxes2))
+    a1 = boxes1[..., 3] * boxes1[..., 4]
+    a2 = boxes2[..., 3] * boxes2[..., 4]
     # exact gate: footprints cannot meet beyond the sum of circumradii
-    inter = torch.where(_bev_disjoint(boxes1, boxes2), 0.0, inter)
+    dx = boxes1[..., 0] - boxes2[..., 0]
+    dy = boxes1[..., 1] - boxes2[..., 1]
+    r1 = 0.5 * torch.sqrt(boxes1[..., 3] ** 2 + boxes1[..., 4] ** 2)
+    r2 = 0.5 * torch.sqrt(boxes2[..., 3] ** 2 + boxes2[..., 4] ** 2)
+    rr = r1 + r2
+    inter = torch.where(dx * dx + dy * dy > rr * rr, 0.0, inter)
     inter = torch.minimum(inter, torch.minimum(a1, a2))
     union = torch.clamp(a1 + a2 - inter, min=_EPS)
     return torch.clamp(inter / union, 0.0, 1.0)
+
+
+def rotated_iou_bev(boxes1, boxes2):
+    """Pairwise rotated BEV IoU. boxes1 (N, 7), boxes2 (M, 7) -> (N, M)."""
+    return _iou_broadcast(boxes1[:, None], boxes2[None, :])
+
+
+def _iou_gated(boxes1, boxes2):
+    """:func:`_iou_broadcast`'s values, the polygon clip computed only for
+    the pairs that pass its circumradius gate: a pair beyond it reads
+    exactly 0 there, and each op is elementwise, so a gathered pair rounds
+    as it does in the broadcast. (The gather syncs the host once.)"""
+    shape = torch.broadcast_shapes(boxes1.shape, boxes2.shape)
+    b1, b2 = boxes1.expand(shape), boxes2.expand(shape)
+    dx = b1[..., 0] - b2[..., 0]
+    dy = b1[..., 1] - b2[..., 1]
+    rr = (0.5 * torch.sqrt(b1[..., 3] ** 2 + b1[..., 4] ** 2)
+          + 0.5 * torch.sqrt(b2[..., 3] ** 2 + b2[..., 4] ** 2))
+    hot = torch.nonzero(~(dx * dx + dy * dy > rr * rr), as_tuple=True)
+    out = boxes1.new_zeros(shape[:-1])
+    out[hot] = _iou_broadcast(b1[hot], b2[hot])
+    return out
+
+
+def rotated_iou_bev_colchunked(boxes1, boxes2, chunk: int = 16384):
+    """Column-chunked rotated BEV IoU: a few boxes1 (..., N, 7) against many
+    boxes2 (..., M, 7) -> (..., N, M), the leading dims broadcast (port of
+    the JAX ``rotated_iou_bev_colchunked``, which takes no leading dims).
+    Each chunk of ``chunk`` columns gives ``rotated_iou_bev(boxes1,
+    cols)``'s values bit for bit, its polygon clip run only on the pairs
+    that pass the circumradius gate (:func:`_iou_gated`), and the chunk
+    bounds the transient memory. The JAX version pads the last chunk with
+    boxes of ones to keep its shapes static and drops their columns; here
+    the last chunk is short, which gives the same values."""
+    m = boxes2.shape[-2]
+    chunk = max(1, min(chunk, m))
+    lead = torch.broadcast_shapes(boxes1.shape[:-2], boxes2.shape[:-2])
+    out = boxes1.new_empty(lead + (boxes1.shape[-2], m))
+    b1 = boxes1[..., :, None, :]
+    for s in range(0, m, chunk):
+        out[..., s:s + chunk] = _iou_gated(
+            b1, boxes2[..., None, s:s + chunk, :])
+    return out
 
 
 def _bev_disjoint(boxes1, boxes2):

@@ -1,4 +1,5 @@
-"""Detection losses, feature-major: sigmoid focal loss (alpha 0.25, gamma 2)
+"""Detection losses, feature-major (and the anchor-major entry,
+:func:`detection_loss`): sigmoid focal loss (alpha 0.25, gamma 2)
 for classification, smooth-L1 on the 7-D residuals with the
 sin(theta_p - theta_t) angle term, and 2-way direction cross-entropy, all
 normalized by the positive-anchor count.
@@ -39,6 +40,16 @@ def sigmoid_focal_loss(logits, targets, alpha: float, gamma: float):
 def smooth_l1(x, beta: float = 1.0 / 9.0):
     ax = torch.abs(x)
     return torch.where(ax < beta, 0.5 * ax * ax / beta, ax - 0.5 * beta)
+
+
+def detection_loss(cls_logits, box_deltas, dir_logits, targets: Targets,
+                   config: PillarsConfig) -> LossBreakdown:
+    """Anchor-major inputs cls (..., A, K), box (..., A, 7), dir (..., A, 2)
+    (``models.pointpillars.ModelOutputs``): transposed to feature-major,
+    then :func:`detection_loss_fm`."""
+    return detection_loss_fm(cls_logits.transpose(-1, -2),
+                             box_deltas.transpose(-1, -2),
+                             dir_logits.transpose(-1, -2), targets, config)
 
 
 def detection_loss_fm(cls_fm, box_fm, dir_fm, targets: Targets,

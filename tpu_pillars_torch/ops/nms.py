@@ -12,9 +12,11 @@ ends when no sample changed, which costs one host sync per sweep (typically
 < 8 sweeps).
 
 :func:`rotated_nms` is the JAX package's single-set entry: the dense IoU
-matrix (``ops.iou.rotated_iou_bev_chunked``, stock torch ops, as the JAX
-package leaves it to XLA), the strict upper triangle above the threshold,
-then the fixpoint. The serving path's batched, class-blocked NMS on the K4
+matrix (the arithmetic of ``ops.iou.rotated_iou_bev_chunked``, stock torch
+ops, as the JAX package leaves it to XLA), the strict upper triangle above
+the threshold, then the fixpoint. :func:`rotated_nms_batched` is the same
+on every sample of a batch at once (the postprocess's ``nms_impl=
+"fixpoint"``). The serving path's batched, class-blocked NMS on the K4
 overlap kernel is ``ops.nms_overlap.rotated_nms_overlap``.
 """
 
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from tpu_pillars_torch.ops.iou import rotated_iou_bev_chunked
+from tpu_pillars_torch.ops.iou import rotated_iou_bev_colchunked
 
 
 def nms_fixpoint(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -48,8 +50,19 @@ def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,
     descending score order, scores (K,) (unused: the order is positional),
     valid (K,) bool (never kept, never suppressing) -> keep (K,) bool."""
     del scores
-    K = boxes.shape[0]
-    iou = rotated_iou_bev_chunked(boxes, boxes, chunk=min(K, 256))
+    return rotated_nms_batched(boxes[None], valid[None], iou_threshold)[0]
+
+
+def rotated_nms_batched(boxes: torch.Tensor, valid: torch.Tensor,
+                        iou_threshold: float) -> torch.Tensor:
+    """:func:`rotated_nms` on each sample of boxes (B, K, 7), valid (B, K)
+    -> keep (B, K), one IoU pass and one fixpoint for the batch. Pair (j,
+    i) rounds as ``rotated_iou_bev_chunked(boxes, boxes)[j, i]``, i.e.
+    ``rotated_iou_bev``'s arithmetic with box i first; 256 columns at a
+    time."""
+    K = boxes.shape[-2]
+    iou = rotated_iou_bev_colchunked(boxes, boxes,
+                                     chunk=min(K, 256)).transpose(-1, -2)
     idx = torch.arange(K, device=boxes.device)
     over = (iou > iou_threshold) & (idx[:, None] < idx[None, :])
-    return nms_fixpoint(over[None], valid[None])[0]
+    return nms_fixpoint(over, valid)

@@ -1,12 +1,24 @@
-"""Serving postprocess: own-class sigmoid scores -> per-class threshold ->
-static top-k -> decode + direction flip -> class-aware rotated NMS ->
-padded detections. Port of ``tpu_pillars/ops/postprocess.py``
-(``postprocess_w`` and ``_nms_and_pack``), batched over a leading B dim.
+"""Postprocess: own-class sigmoid scores -> per-class threshold -> static
+top-k -> decode + direction flip -> class-aware rotated NMS -> padded
+detections. Port of ``tpu_pillars/ops/postprocess.py``, batched over a
+leading B dim, in its three input layouts: :func:`postprocess_w` (the
+serving wire), :func:`postprocess_t` (feature-major) and
+:func:`postprocess` (anchor-major); on the same logits the three give the
+same detections bit for bit.
+
+NMS (``nms_impl``, :func:`resolve_nms_impl`): "auto" is the default
+switch between the card and the CPU, as the JAX package picks per
+backend: "pallas", the K4 overlap matrix, class-blocked
+(``ops.nms_overlap.rotated_nms_overlap``), on a CUDA tensor, and
+"fixpoint", the dense IoU of each sample's candidates
+(``ops.nms.rotated_nms_batched``: ``rotated_nms`` on every sample), on the
+CPU. Both keep the same sets up to IoUs within rounding of the threshold;
+on the card "fixpoint" is only the check of K4, not a serving option.
 
 Top-k ties: ``lax.top_k`` breaks ties toward the lowest index, and trained
-weights saturate sigmoid scores to exactly 1.0, so ties are common. Both
-selections here take the first k of a STABLE descending sort, which has the
-same rule; ``torch.topk`` has none.
+weights saturate sigmoid scores to exactly 1.0, so ties are common. Every
+selection here takes the first k of a STABLE descending sort, which has
+the same rule; ``torch.topk`` has none.
 """
 
 from __future__ import annotations
@@ -18,7 +30,10 @@ import torch
 
 from tpu_pillars_torch.config import PillarsConfig
 from tpu_pillars_torch.ops.box_coder import decode_boxes
+from tpu_pillars_torch.ops.nms import rotated_nms_batched
 from tpu_pillars_torch.ops.nms_overlap import rotated_nms_overlap
+
+NMS_IMPLS = ("auto", "fixpoint", "pallas")
 
 
 class Detections(NamedTuple):
@@ -58,8 +73,60 @@ def _top_candidates(own_logits, anchor_cls, config: PillarsConfig):
     return top_scores, top_idx, top_scores > 0.0
 
 
+def _decoded(box_rows, dir_rows, anchors, top_idx):
+    """(B, K, 7) candidate residuals, (B, 2, K) direction logits -> boxes,
+    direction classes."""
+    return (decode_boxes(box_rows, anchors[top_idx]),
+            torch.argmax(dir_rows, dim=1))
+
+
+def postprocess_t(cls_t, box_t, dir_t, anchors, anchor_cls,
+                  config: PillarsConfig, nms_impl: str = "auto"
+                  ) -> Detections:
+    """Feature-major postprocess: cls_t (B, K, A), box_t (B, 7, A), dir_t
+    (B, 2, A) in canonical anchor order; anchors (A, 7) and anchor_cls (A,)
+    long on the same device. The own-class logit is a per-class select."""
+    own = cls_t[:, 0]
+    for c in range(1, cls_t.shape[1]):
+        own = torch.where(anchor_cls == c, cls_t[:, c], own)
+    top_scores, top_idx, cand_valid = _top_candidates(own, anchor_cls,
+                                                      config)
+
+    def take_cols(t):                                          # (B, r, K)
+        return torch.gather(t, 2, top_idx[:, None, :].expand(
+            -1, t.shape[1], -1))
+
+    boxes, dir_cls = _decoded(take_cols(box_t).transpose(1, 2),
+                              take_cols(dir_t), anchors, top_idx)
+    return _nms_and_pack(boxes, dir_cls, anchor_cls[top_idx], top_scores,
+                         cand_valid, config, nms_impl)
+
+
+def postprocess(cls_logits, box_deltas, dir_logits, anchors, anchor_cls,
+                config: PillarsConfig, nms_impl: str = "auto") -> Detections:
+    """Anchor-major postprocess (``models.pointpillars.ModelOutputs``):
+    cls_logits (B, A, K), box_deltas (B, A, 7), dir_logits (B, A, 2);
+    anchors (A, 7) and anchor_cls (A,) long on the same device."""
+    B = cls_logits.shape[0]
+    own = torch.gather(cls_logits, 2, anchor_cls[None, :, None].expand(
+        B, -1, 1))[..., 0]
+    top_scores, top_idx, cand_valid = _top_candidates(own, anchor_cls,
+                                                      config)
+
+    def take_rows(t):                                          # (B, K, r)
+        return torch.gather(t, 1, top_idx[..., None].expand(
+            -1, -1, t.shape[2]))
+
+    boxes, dir_cls = _decoded(take_rows(box_deltas),
+                              take_rows(dir_logits).transpose(1, 2), anchors,
+                              top_idx)
+    return _nms_and_pack(boxes, dir_cls, anchor_cls[top_idx], top_scores,
+                         cand_valid, config, nms_impl)
+
+
 def postprocess_w(own, box_p, dir_p, anchors, anchor_cls,
-                  config: PillarsConfig) -> Detections:
+                  config: PillarsConfig, nms_impl: str = "auto"
+                  ) -> Detections:
     """Serving-wire postprocess: own (B, A) own-class logits in CANONICAL
     anchor order (a = hw * A_loc + a_loc); box_p (B, 7, A), dir_p (B, 2, A)
     feature-major in the PERMUTED order (a'' = a_loc * HW + hw); anchors
@@ -75,15 +142,27 @@ def postprocess_w(own, box_p, dir_p, anchors, anchor_cls,
         rows = t.shape[1]
         return torch.gather(t, 2, p_idx[:, None, :].expand(-1, rows, -1))
 
-    boxes = decode_boxes(take_cols(box_p).transpose(1, 2), anchors[top_idx])
-    dir_cls = torch.argmax(take_cols(dir_p), dim=1)
-    cls_of = anchor_cls[top_idx]
-    return _nms_and_pack(boxes, dir_cls, cls_of, top_scores, cand_valid,
-                         config)
+    boxes, dir_cls = _decoded(take_cols(box_p).transpose(1, 2),
+                              take_cols(dir_p), anchors, top_idx)
+    return _nms_and_pack(boxes, dir_cls, anchor_cls[top_idx], top_scores,
+                         cand_valid, config, nms_impl)
+
+
+def resolve_nms_impl(nms_impl: str, device) -> str:
+    """"auto" -> "pallas" (K4) on a CUDA device, "fixpoint" on the CPU;
+    "pallas" and "fixpoint" stay; any other name raises ValueError."""
+    if nms_impl not in NMS_IMPLS:
+        raise ValueError(f"unknown nms_impl {nms_impl!r}; expected 'auto', "
+                         f"'fixpoint' or 'pallas'")
+    if nms_impl == "auto":
+        return "pallas" if torch.device(device).type == "cuda" \
+            else "fixpoint"
+    return nms_impl
 
 
 def _nms_and_pack(boxes, dir_cls, cls_of, top_scores, cand_valid,
-                  config: PillarsConfig) -> Detections:
+                  config: PillarsConfig, nms_impl: str) -> Detections:
+    nms_impl = resolve_nms_impl(nms_impl, boxes.device)
     D = config.max_detections
     flip = (boxes[..., 6] > 0).to(dir_cls.dtype) != dir_cls
     yaw = wrap_angle(boxes[..., 6] + torch.where(flip, math.pi, 0.0))
@@ -93,9 +172,13 @@ def _nms_and_pack(boxes, dir_cls, cls_of, top_scores, cand_valid,
     span = (config.x_max - config.x_min) + (config.y_max - config.y_min)
     shifted = boxes.clone()
     shifted[..., 0] = boxes[..., 0] + cls_of.to(boxes.dtype) * (4.0 * span)
-    keep = rotated_nms_overlap(shifted, cand_valid,
-                               config.nms_iou_threshold, class_ids=cls_of,
-                               class_gap=4.0 * span)
+    if nms_impl == "pallas":
+        keep = rotated_nms_overlap(shifted, cand_valid,
+                                   config.nms_iou_threshold,
+                                   class_ids=cls_of, class_gap=4.0 * span)
+    else:
+        keep = rotated_nms_batched(shifted, cand_valid,
+                                   config.nms_iou_threshold)
 
     final_scores = torch.where(keep, top_scores, -1.0)
     det_scores, det_idx = top_k_stable(final_scores, D)

@@ -1,8 +1,10 @@
-"""Training targets and class grouping of the GT boxes.
+"""Training targets: the container, the class grouping of the GT boxes
+and the dense assigner.
 
-Port of the container and grouping parts of
-``tpu_pillars/ops/target_assigner.py``. The assignment itself (K5 plus its
-epilogue) is ``ops/assign.py``.
+Port of ``tpu_pillars/ops/target_assigner.py``, batched over a leading B:
+:func:`make_classwise_assigner` (the class-blocked dense assigner the JAX
+step runs as "dense"), in stock torch ops as the JAX package leaves it to
+XLA. The windowed assigner on the K5 kernel is ``ops/assign.py``.
 
 Rules (SECOND/PointPillars lineage): an anchor only matches GT boxes of its
 own class; IoU >= matched_iou -> positive, IoU < unmatched_iou -> negative,
@@ -12,9 +14,16 @@ regression target = encode(gt, anchor); direction target = [gt yaw > 0].
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
+
+from tpu_pillars_torch.config import PillarsConfig
+from tpu_pillars_torch.ops.anchors import make_anchors
+from tpu_pillars_torch.ops.box_coder import encode_boxes
+from tpu_pillars_torch.ops.iou import rotated_iou_bev_colchunked
 
 
 class Targets(NamedTuple):
@@ -55,3 +64,119 @@ def group_gt_by_class(gt_boxes, gt_cls, gt_valid, num_classes: int,
     valid = valid.reshape(B, slots + 1)[:, :slots]
     return (boxes.reshape(B, num_classes, cap, 7),
             valid.reshape(B, num_classes, cap))
+
+
+def _force_match(best_anchor, claim, n_anchors: int):
+    """Each claiming GT takes its best anchor: best_anchor, claim (R, G)
+    -> forced (R, A) bool and forced_gt (R, A) int64, the highest claiming
+    GT index on each anchor and -1 elsewhere (the JAX scatter-max rule)."""
+    R, G = best_anchor.shape
+    dev = best_anchor.device
+    at = (best_anchor + torch.arange(R, device=dev)[:, None] * n_anchors
+          ).reshape(-1)
+    forced = torch.zeros(R * n_anchors, dtype=torch.int32, device=dev)
+    forced.scatter_reduce_(0, at, claim.to(torch.int32).reshape(-1), "amax")
+    gidx = torch.arange(G, device=dev)
+    forced_gt = torch.full((R * n_anchors,), -1, dtype=torch.int64,
+                           device=dev)
+    forced_gt.scatter_reduce_(0, at, torch.where(claim, gidx, -1).reshape(-1),
+                              "amax")
+    return (forced.reshape(R, n_anchors) > 0,
+            forced_gt.reshape(R, n_anchors))
+
+
+def _thresholds(config: PillarsConfig, device):
+    return (torch.tensor([c.matched_iou for c in config.classes],
+                         dtype=torch.float32, device=device),
+            torch.tensor([c.unmatched_iou for c in config.classes],
+                         dtype=torch.float32, device=device))
+
+
+class _ClasswiseConsts:
+    """The static class-block anchors of one config on one device."""
+
+    def __init__(self, config: PillarsConfig, device):
+        anchors, anchor_cls = make_anchors(config)
+        C, Y = config.num_classes, len(config.anchor_yaws)
+        HW = config.feature_h * config.feature_w
+        # (A, 7) laid out (HW, C, Y) -> (C, HW * Y, 7) class blocks
+        by_class = (np.asarray(anchors).reshape(HW, C, Y, 7)
+                    .transpose(1, 0, 2, 3).reshape(C, HW * Y, 7))
+        self.anchors_by_class = torch.from_numpy(
+            np.ascontiguousarray(by_class)).to(device)
+        cls = torch.from_numpy(np.array(anchor_cls, np.int64)).to(device)
+        self.onehot = (cls[None, :] == torch.arange(
+            C, device=device)[:, None])                          # (C, A)
+        self.matched, self.unmatched = _thresholds(config, device)
+
+
+@functools.lru_cache(maxsize=8)
+def _classwise_consts(config: PillarsConfig, device):
+    return _ClasswiseConsts(config, device)
+
+
+def make_classwise_assigner(config: PillarsConfig, max_gt_per_class: int = 16,
+                            iou_chunk: int = 16384):
+    """Returns assign(gt_boxes (B, G, 7), gt_cls (B, G), gt_valid (B, G))
+    -> batched feature-major :class:`Targets` on the inputs' device: each
+    class's anchor block against its own GT only
+    (:func:`group_gt_by_class`, ``max_gt_per_class`` a class), a (B, C, Gc,
+    Ac) IoU of ``iou_chunk`` anchors at a time; ineligible pairs (an
+    invalid slot) at -1, ties to the lowest index."""
+    C = config.num_classes
+    Y = len(config.anchor_yaws)
+    HW = config.feature_h * config.feature_w
+    A = config.num_anchors
+    Ac = HW * Y
+    Gc = max_gt_per_class
+
+    @torch.no_grad()
+    def assign(gt_boxes, gt_cls, gt_valid) -> Targets:
+        dev = gt_boxes.device
+        k = _classwise_consts(config, dev)
+        anchors_c = k.anchors_by_class                          # (C, Ac, 7)
+        B = gt_boxes.shape[0]
+        gt_c, gv_c = group_gt_by_class(gt_boxes, gt_cls, gt_valid, C, Gc)
+        iou = rotated_iou_bev_colchunked(gt_c, anchors_c[None],
+                                         chunk=iou_chunk)
+        iou = torch.where(gv_c[..., None], iou, -1.0)          # (B,C,Gc,Ac)
+        best_gt = torch.argmax(iou, dim=2)                      # (B, C, Ac)
+        best_iou = torch.gather(iou, 2, best_gt[:, :, None])[:, :, 0]
+        pos = best_iou >= k.matched[:, None]
+        best_anchor = torch.argmax(iou, dim=3)                  # (B, C, Gc)
+        gt_best_iou = torch.gather(iou, 3, best_anchor[..., None])[..., 0]
+        del iou
+        claim = gv_c & (gt_best_iou > 0.0)
+        forced, forced_gt = _force_match(best_anchor.reshape(B * C, Gc),
+                                         claim.reshape(B * C, Gc), Ac)
+        forced = forced.reshape(B, C, Ac)
+        forced_gt = forced_gt.reshape(B, C, Ac)
+        pos = pos | forced
+        neg = (best_iou < k.unmatched[:, None]) & ~pos
+        assigned = torch.where(forced & (forced_gt >= 0), forced_gt, best_gt)
+        # non-positive anchors encode against THEMSELVES (residual 0): padded
+        # all-zero GT rows would otherwise give log(0) and 0/0, which a zero
+        # regression weight does not cancel (0 * nan = nan)
+        picked = torch.gather(gt_c, 2, assigned[..., None].expand(
+            B, C, Ac, 7))
+        matched = torch.where(pos[..., None], picked, anchors_c[None])
+        reg = encode_boxes(matched, anchors_c[None])            # (B,C,Ac,7)
+        dirt = (matched[..., 6] > 0.0).to(torch.int32) * pos
+
+        def unblock(x):         # (B, C, HW * Y, ...) -> (B, A, ...)
+            rest = x.shape[3:]
+            return (x.reshape((B, C, HW, Y) + rest).transpose(1, 2)
+                    .reshape((B, A) + rest))
+
+        pos, neg, reg, dirt = (unblock(x) for x in (pos, neg, reg, dirt))
+        posf = pos.to(torch.float32)
+        return Targets(
+            cls_onehot=(k.onehot[None] & pos[:, None, :]).to(torch.float32),
+            reg_targets=reg.transpose(1, 2) * posf[:, None, :],
+            dir_targets=dirt * pos,
+            cls_weights=(pos | neg).to(torch.float32),
+            reg_weights=posf,
+            num_pos=posf.sum(dim=1),
+        )
+
+    return assign

@@ -5,7 +5,8 @@ elastic hooks. Port of ``tpu_pillars/train/loop.py``.
 
     python -m tpu_pillars_torch.train.loop --full-size --steps 20 --batch 8 \\
         --out DIR [--resume] [--ema 0.999] [--eval-every N] [--tensorboard] \\
-        [--bf16] [--data JSON_DIR [--workers 4] [--no-augment] \\
+        [--bf16] [--no-fused-frontend] \\
+        [--data JSON_DIR [--workers 4] [--no-augment] \\
         [--object-noise] [--cbgs 1.0] [--gt-sample 8] [--val-samples 8]]
 
 writes ``DIR/train.jsonl``, ``DIR/ckpt.msgpack`` (a full checkpoint, which
@@ -20,7 +21,8 @@ on the CPU (use the default tiny config there). ``--prefetch N`` (default
 2) builds N batches ahead in a background thread and moves them to the
 device there; 0 builds each batch in the step. ``--bf16`` trains in mixed
 precision (bf16 canvas, RPN and head; f32 master state, checkpoints and
-losses). ``--data`` trains on a Lyft-format dataset (``train/data.py``)
+losses). ``--no-fused-frontend`` trains on the classic front end.
+``--data`` trains on a Lyft-format dataset (``train/data.py``)
 with the global augmentation (``--no-augment`` turns it off), and
 optionally per-object noise, GT-database sampling and class-balanced
 resampling; with ``--eval-every`` its last ``--val-samples`` samples are
@@ -302,6 +304,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    default="all",
                    help="activation checkpointing tier (recompute in the "
                         "backward pass instead of saving)")
+    p.add_argument("--no-fused-frontend", action="store_true",
+                   help="train on the classic front end (K1 on the raw "
+                        "points, decorate, the PillarFeatureNet on batch "
+                        "statistics, K3) instead of the fused one")
     p.add_argument("--accum", type=int, default=1,
                    help="gradient-accumulation microbatches per step")
     p.add_argument("--bf16", action="store_true",
@@ -389,12 +395,14 @@ def main(argv=None) -> None:
                        resumed_at=start, device=kind,
                        full_size=args.full_size, remat=args.remat,
                        accum=args.accum, prefetch=args.prefetch,
+                       fused_frontend=not args.no_fused_frontend,
                        compute_dtype=tcfg.compute_dtype, data=args.data,
                        params=sum(x.numel()
                                   for x in state.model.parameters()))
             step_fn = make_train_step(
                 config, remat=args.remat, accum_steps=args.accum,
-                compute_dtype=getattr(torch, tcfg.compute_dtype))
+                compute_dtype=getattr(torch, tcfg.compute_dtype),
+                fused_frontend=not args.no_fused_frontend)
             fit(state, batches, steps=max(0, args.steps - start),
                 step_fn=step_fn, config=config, logger=logger,
                 ckpt_path=ckpt_path, eval_fn=eval_fn,

@@ -1,22 +1,27 @@
 """The training step: points and GT boxes in, one AdamW update out. Port of
-``tpu_pillars/train/step.py`` on its fused path (the one the JAX package
-runs on its accelerator):
+``tpu_pillars/train/step.py``, with both of its front ends:
 
-  points -> sort + cell-centre + K1 emit (``ops.fused_pfn``)
-         -> differentiable fused PFN, masked BatchNorm from sufficient
-            statistics (``pfn_train_from_table``)
+  points -> fused (default): sort + cell-centre + K1 emit
+            (``ops.fused_pfn``), the differentiable fused PFN, masked
+            BatchNorm from sufficient statistics (``pfn_train_from_table``)
+         -> classic (``fused_frontend=False``): sort + K1 emit on the raw
+            points + ``decorate`` (``ops.emit.pillarize_batch_emit``), the
+            PillarFeatureNet on batch statistics (``models.pfn``)
          -> K3 scatter, row-gather backward (``ops.bev.scatter_to_bev_diff``)
          -> batch-statistics RPN -> feature-major head
-  GT     -> K5 windowed target assignment (``ops.assign``)
+  GT     -> target assignment: K5 windowed (``ops.assign``, default) or the
+            dense class-blocked assigner (``ops.target_assigner``)
          -> focal / smooth-L1 / direction loss -> backward
          -> global-norm clip + AdamW (``train.state.AdamW``)
 
 The forward and backward run under ``models.pointpillars.full_fp32`` (no
 TF32 in cuDNN or cuBLAS), like the f32 reference. ``compute_dtype=
-torch.bfloat16`` is the JAX package's mixed precision on its fused path:
-the fused PFN stays f32, its rows are cast to bf16 before K3 (which writes
-a bf16 canvas), the RPN and the head run in bf16 (BatchNorm moments in
-f32), and the head returns f32 to f32 losses; the parameters, running
+torch.bfloat16`` is the JAX package's mixed precision: the fused PFN
+stays f32 and its rows are cast to bf16 before K3, the classic
+PillarFeatureNet's linear layer runs in bf16 (BatchNorm moments and
+normalise in f32, output bf16); K3 writes a bf16 canvas from bf16 rows,
+the RPN and the head run in bf16 (BatchNorm moments in f32), and the head
+returns f32 to f32 losses; the parameters, running
 statistics and AdamW moments stay f32, and the gradients reach them
 through the casts. BatchNorm running statistics are updated by the step
 itself from the moments the forward returns (momentum 0.99, biased
@@ -33,13 +38,17 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from tpu_pillars_torch.config import PillarsConfig
-from tpu_pillars_torch.models.pointpillars import full_fp32, remat_flags
+from tpu_pillars_torch.models.pointpillars import (
+    ModelOutputs, PointPillars, full_fp32, remat_flags,
+)
 from tpu_pillars_torch.ops.assign import make_windowed_assigner
 from tpu_pillars_torch.ops.bev import scatter_to_bev_diff
+from tpu_pillars_torch.ops.emit import pillarize_batch_emit
 from tpu_pillars_torch.ops.fused_pfn import (
     emit_centered_table, pfn_train_from_table,
 )
 from tpu_pillars_torch.ops.losses import LossBreakdown, detection_loss_fm
+from tpu_pillars_torch.ops.target_assigner import make_classwise_assigner
 from tpu_pillars_torch.train.state import TrainState
 
 
@@ -90,9 +99,31 @@ class _Phases:
         self.t = now
 
 
+def make_assigner(config: PillarsConfig, assigner="windowed",
+                  max_gt_per_class: int = 16, iou_chunk: int = 16384):
+    """The JAX package's assigner names -> a batched assign(gt_boxes,
+    gt_classes, gt_valid) -> Targets: "windowed" is K5
+    (``ops.assign.make_windowed_assigner``), "dense" the class-blocked
+    dense IoU (``ops.target_assigner.make_classwise_assigner``, chunks of
+    ``iou_chunk`` anchors). A callable is returned as it is. (The JAX
+    package's "auto" picks per backend; the port always runs on its card,
+    where that is "windowed", so it has no "auto".)"""
+    if callable(assigner):
+        return assigner
+    if assigner == "windowed":
+        return make_windowed_assigner(config, max_gt_per_class)
+    if assigner == "dense":
+        return make_classwise_assigner(config, max_gt_per_class,
+                                       iou_chunk=iou_chunk)
+    raise ValueError(f"assigner must be 'windowed', 'dense' or a "
+                     f"callable; got {assigner!r}")
+
+
 def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
-                    remat=True, accum_steps: int = 1, assigner=None,
-                    compute_dtype=torch.float32):
+                    remat=True, accum_steps: int = 1, assigner="windowed",
+                    compute_dtype=torch.float32,
+                    fused_frontend: bool = True,
+                    iou_chunk: int = 16384):
     """Returns step(state, batch, split=None) -> (state, LossBreakdown).
 
     The step updates ``state.model`` and its optimizer in place and returns
@@ -108,8 +139,15 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
     BatchNorm moments are per microbatch, and the running statistics take
     one momentum update per microbatch, as in the JAX package.
 
-    assigner: (gt_boxes, gt_classes, gt_valid) -> batched Targets; the
-    windowed assigner (K5) by default.
+    assigner: "windowed" (default) for K5, "dense" for the
+    class-blocked dense assigner (its IoU ``iou_chunk`` anchors at a time),
+    or a callable (gt_boxes, gt_classes, gt_valid) -> batched Targets
+    (:func:`make_assigner`).
+
+    fused_frontend: True (default) for the fused front end, False for the
+    classic one (see the module docstring). The JAX package's default
+    picks the fused one on its accelerator and the classic one elsewhere;
+    the port always runs on its card, so its default is the fused one.
 
     compute_dtype: torch.float32 (default) or torch.bfloat16, the type of
     the canvas, the RPN and the head (see the module docstring).
@@ -120,27 +158,46 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute_dtype must be torch.float32 or "
                         f"torch.bfloat16, got {compute_dtype}")
-    assign_b = assigner or make_windowed_assigner(config, max_gt_per_class)
+    assign_b = make_assigner(config, assigner, max_gt_per_class, iou_chunk)
+    if fused_frontend:
+        def inputs_of(batch: TrainBatch):
+            return emit_centered_table(batch.points, batch.num_points,
+                                       config)
 
-    def grads_of(model, batch: TrainBatch, phases: _Phases):
-        with torch.no_grad():
-            table, meta = emit_centered_table(batch.points, batch.num_points,
-                                              config)
-        phases.mark("frontend")
-        targets = assign_b(batch.gt_boxes, batch.gt_classes, batch.gt_valid)
-        phases.mark("assign")
-        p = model.pfn
+        def canvas_of(model, inputs):
+            """-> (canvas, the PFN's batch mean and var)."""
+            table, meta = inputs
+            p = model.pfn
 
-        def pfn_feats(w, scale, bias):
-            return pfn_train_from_table(table, meta, w, scale, bias, config)
+            def pfn_feats(w, scale, bias):
+                return pfn_train_from_table(table, meta, w, scale, bias,
+                                            config)
 
-        with full_fp32():
             args = (p.kernel, p.bn.weight, p.bn.bias)
             feats, pid, cnt, b_mean, b_var = (
                 checkpoint(pfn_feats, *args, use_reentrant=False)
                 if remat_pfn else pfn_feats(*args))
             canvas = scatter_to_bev_diff(feats.to(compute_dtype), pid,
                                          cnt > 0.0, config, compute_dtype)
+            return canvas, b_mean, b_var
+    else:
+        def inputs_of(batch: TrainBatch):
+            return pillarize_batch_emit(batch.points, batch.num_points,
+                                        config)
+
+        def canvas_of(model, pillars):
+            return model.train_canvas_from_batch(pillars, remat_pfn,
+                                                 compute_dtype)
+
+    def grads_of(model, batch: TrainBatch, phases: _Phases):
+        with torch.no_grad():
+            inputs = inputs_of(batch)
+        phases.mark("frontend")
+        targets = assign_b(batch.gt_boxes, batch.gt_classes, batch.gt_valid)
+        phases.mark("assign")
+
+        with full_fp32():
+            canvas, b_mean, b_var = canvas_of(model, inputs)
             feat, moments = model.train_features_from_canvas(
                 canvas, remat_rpn, compute_dtype)
             cls_fm, box_fm, dir_fm = model.head.feature_major(feat,
@@ -152,7 +209,7 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
             total.backward()
         phases.mark("backward")
         # the running statistics: once per (micro)batch, here and only here
-        p.bn.update_running(b_mean.detach(), b_var.detach())
+        model.pfn.bn.update_running(b_mean.detach(), b_var.detach())
         for bn, (mean, var) in zip(model.rpn.batch_norms(), moments):
             bn.update_running(mean.detach(), var.detach())
         return LossBreakdown(total.detach(), losses.cls.detach().mean(),
@@ -193,3 +250,17 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
         return state, sums
 
     return train_step
+
+
+def make_eval_forward(config: PillarsConfig, dtype=torch.float32):
+    """The JAX ``make_eval_forward``: returns forward(model, points (B, M,
+    F), num_points (B,)) -> anchor-major ``ModelOutputs``, the classic front
+    end (K1 + ``decorate``) and the model on its running statistics
+    (frozen BatchNorm), no gradients; for validation losses and
+    ``ops.postprocess.postprocess``."""
+    @torch.no_grad()
+    def forward(model: PointPillars, points, num_points) -> ModelOutputs:
+        pb = pillarize_batch_emit(points, num_points, config)
+        return model(pb, dtype)
+
+    return forward
