@@ -70,6 +70,28 @@ line:
      against the JAX detections; on the batch, ``postprocess_t`` equal to
      ``postprocess`` bit for bit and ``nms_impl="fixpoint"`` equal to
      "pallas" (K4); K1, K3 and K4 launched, K2 and K6 not.
+     3g. The serving surface. (a) The batch through the f32, f16 and
+     int16 wires (``Detector(wire_dtype=)``): K1-K4 launched on each, the
+     wire's own dtype uploaded, each 2-byte wire's detections bit-equal to
+     the f32 wire's on its dequantized points; printed against the f32
+     wire, not gated (they hold at the tiny config of the CPU tests, not at
+     this width: PERF.md §6): tests/test_wire_f16.py's logit measures
+     and tests/test_detector_e2e.py's int16 box tolerance; bytes uploaded
+     and a host-clock split per wire. (b) ``predict_stream`` on the 8 golden scenes, threaded and
+     serial, bit-equal to ``predict``, sweeps/s beside a ``predict`` loop.
+     (c) ``Detector.from_torch`` of the checkpoint in the CPU reference's
+     torch layout bit-equal to ``from_checkpoint`` on the golden scenes;
+     the port's ``CPUReferenceDetector`` on 2 golden scenes within the
+     golden tolerance of the JAX detections and of the card's boxes; its
+     sweeps/s on the host and the card's batch-8 sweeps/s over it. (d)
+     ``python -m tpu_pillars_torch.serve --full-size --batch-size 8`` as a
+     subprocess (killed on every exit path): 8 concurrent golden scenes,
+     each response equal to the call it rode and to the JAX detections,
+     one batched at least, ``/healthz`` naming the card; latencies and
+     requests/s. (e) A ``SweepAccumulator`` over a 3-sweep Lyft-format
+     fixture equal to ``load_sweeps`` on its keyframes, the clouds served
+     at ``num_sweeps=3`` from a seeded model's checkpoint (K1-K4
+     launched, the same boxes twice).
   5. Evaluation (run before training): the held-out mAP of the 8 golden
      scenes on the card (``evaluate_scenes``) within 1e-3 of the port's
      scorer on the golden JAX detections; ``predict_tta`` (4 views, WBF)
@@ -525,6 +547,10 @@ def main() -> None:
     del points, counts
     torch.cuda.empty_cache()
 
+    # ---- phase 3g: the serving surface (wires, predict_stream, from_torch
+    # and the CPU reference, the HTTP server, the multi-sweep stream)
+    surface = serving_surface(cfg, card, clouds, golden)
+
     # ---- phase 5 (run before training): evaluation on the card
     evaluation(cfg, golden)
 
@@ -558,6 +584,7 @@ def main() -> None:
     classic = classic_training(cfg, dev)
     print(f"launches in classic training (f32, remat all, K5): "
           f"{ {k: classic[k] for k in ('emit', 'bev_scatter', 'assign')} }")
+    print(f"launches on the serving surface (3g): {json.dumps(surface)}")
 
     replaces = {"emit": "tpu_pillars/ops/emit_pallas.py:113",
                 "fused_pfn": "tpu_pillars/ops/fused_pfn.py:102",
@@ -1099,6 +1126,439 @@ class AnchorMajorDetector:
         det = self.detections(self.outputs(pts, cnt))
         return packed_to_boxes(pack_detections(det)[0].cpu().numpy(),
                                self.config)
+
+
+WIRE_NAMES = ("f32", "f16", "int16")
+
+
+def serving_surface(cfg, card, clouds, golden):
+    """Phase 3g, the serving surface at the full config on the trained
+    checkpoint: (a) the f32, f16 and int16 wires, (b) ``predict_stream``,
+    (c) ``Detector.from_torch`` and the CPU reference, (d) the HTTP server
+    as a subprocess, (e) the multi-sweep stream. The server starts first
+    and warms while (a)-(c) run. Returns the launches of the f32 wire's
+    batch call and of the other paths, by path."""
+    import torch
+
+    from tpu_pillars_torch.detector import Detector
+
+    t_phase = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tpu_pillars_torch.serve", "--ckpt", CKPT,
+         "--full-size", "--batch-size", str(BATCH), "--port", "0"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        launches = wire_phase(cfg, clouds)
+        det = Detector.from_checkpoint(cfg, CKPT)
+        launches["stream"] = stream_phase(det, golden)
+        launches["reference"] = reference_phase(cfg, det, golden)
+        launches["server"] = server_phase(cfg, det, golden, proc)
+        launches["multisweep"] = multisweep_phase(cfg)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate(timeout=60)
+    del det
+    torch.cuda.empty_cache()
+    print(f"phase 3g ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _serving_launches(where):
+    """The serving path's K1-K4 launch counts since the last reset; fails
+    when one did not launch."""
+    from tpu_pillars_torch import _build
+
+    launches = {k: _build.LAUNCHES[k]
+                for k in ("emit", "fused_pfn", "bev_scatter", "nms_overlap")}
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"kernel {name} did not launch on {where}")
+    return launches
+
+
+def wire_phase(cfg, clouds):
+    """3g (a): the batch of 8 lidar-like sweeps through the f32, f16 and
+    int16 wires. K1-K4 must launch for each. Each 2-byte wire must change
+    nothing but the quantization: its packed detections equal, bit for
+    bit, the f32 wire's on the dequantized points (f16 cast to f32; int16
+    times the scales, the JAX formula, on the host). Prints against the
+    f32 wire the f16 class logits' median |d| and share above 0.1
+    (tests/test_wire_f16.py's measures) and the int16 boxes' deviations
+    (tests/test_detector_e2e.py::test_int16_wire_near_exact's), the bytes
+    uploaded a batch and a host-clock split (pad, upload, device,
+    download, total; median of 5 after a warm-up)."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.detector import (
+        Detector, int16_wire_scales, packed_to_boxes,
+    )
+
+    dtypes = dict(zip(WIRE_NAMES, (torch.float32, torch.float16,
+                                   torch.int16)))
+    launches, boxes, logits, hosts, packs = {}, {}, {}, {}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    for name, dtype in dtypes.items():
+        det = Detector.from_checkpoint(cfg, CKPT, wire_dtype=dtype)
+        split = {k: [] for k in ("pad_ms", "upload_ms", "device_ms",
+                                 "download_ms", "total_ms")}
+        for rep in range(6):
+            if rep == 5:
+                _build.reset_launches()
+            t_all = time.perf_counter()
+            padded, t_pad = timed(lambda: [det.pad_points(c)
+                                           for c in clouds])
+            host = np.stack([p for p, _ in padded])
+            n_b = np.asarray([n for _, n in padded], np.int32)
+            (pts, cnt), t_up = timed(lambda: (det.upload(host),
+                                              det.upload(n_b)))
+            packed, t_dev = timed(lambda: det.predict_packed_batch(pts, cnt))
+            out, t_down = timed(lambda: packed.cpu().numpy())
+            total = (time.perf_counter() - t_all) * 1e3
+            for key, v in zip(split, (t_pad, t_up, t_dev, t_down, total)):
+                split[key].append(v)
+        launches[name] = _serving_launches(f"the {name} wire")
+        if pts.dtype != dtype:
+            fail(f"the {name} wire uploaded {pts.dtype}")
+        med = {k: round(float(np.median(v[1:])), 4) for k, v in split.items()}
+        print(f"wire {name}: {host.nbytes + n_b.nbytes} bytes uploaded a "
+              f"batch of {len(clouds)}; split (host clock, ms) "
+              f"{json.dumps(med)}; {len(clouds) / med['total_ms'] * 1e3:.2f} "
+              f"sweeps/s; launches {launches[name]}")
+        boxes[name] = [packed_to_boxes(o, cfg) for o in out]
+        hosts[name], packs[name] = (host, n_b), out
+        if name != "int16":
+            with torch.no_grad():
+                logits[name] = det.wire(det.canvas(det.dequant(pts), cnt))[0]
+        if name == "f32":
+            det32 = det
+        del det, pts, packed
+
+    # the 2-byte wires against the f32 wire on their own dequantized points
+    scales = int16_wire_scales(cfg)
+    for name, deq in (("f16", lambda h: h.astype(np.float32)),
+                      ("int16", lambda h: h.astype(np.float32) * scales)):
+        host, n_b = hosts[name]
+        want = det32.predict_packed_batch(deq(host), n_b).cpu().numpy()
+        if not np.array_equal(packs[name], want):
+            fail(f"the {name} wire's detections differ from the f32 wire's "
+                 f"on its dequantized points")
+    print("f16 and int16 wires: detections bit-equal to the f32 wire's on "
+          "their dequantized points")
+    del det32, hosts
+    torch.cuda.empty_cache()
+
+    dc = (logits["f32"] - logits["f16"]).abs().flatten()
+    print(f"f16 wire against f32: class logits median |d| "
+          f"{float(dc.median()):.3e}, share above 0.1 "
+          f"{float((dc > 0.1).float().mean()):.3e} (tests/test_wire_f16.py "
+          f"at its tiny config: < 1e-3, < 5e-2)")
+    worst, n_same, off = np.zeros(4), 0, 0
+    for g_all, r_all in zip(boxes["int16"], boxes["f32"]):
+        off += abs(len(g_all) - len(r_all))
+        for g, r in zip(g_all, r_all):
+            dyaw = abs((g.yaw - r.yaw + math.pi) % (2 * math.pi) - math.pi)
+            dev = (abs(g.score - r.score),
+                   float(np.abs(np.asarray(g.center) - r.center).max()),
+                   float(np.abs(np.asarray(g.wlh) - r.wlh).max()), dyaw)
+            n_same += (g.label == r.label and dev[0] <= 2e-3
+                       and max(dev[1:]) <= 2e-2)
+            worst = np.maximum(worst, dev)
+    n32 = sum(len(b) for b in boxes["f32"])
+    print(f"int16 wire against f32: {n_same} of {n32} boxes within tests/"
+          f"test_detector_e2e.py's int16 tolerance (score 2e-3, centre, "
+          f"size, yaw 2e-2), box counts off by {off}; worst |d score| "
+          f"{worst[0]:.3e}, |d centre| {worst[1]:.3e} m, |d size| "
+          f"{worst[2]:.3e} m, |d yaw| {worst[3]:.3e} rad")
+    del logits
+    return launches
+
+
+def golden_clouds(golden):
+    offs = golden["offsets"]
+    return [golden["points"][offs[s]:offs[s + 1]]
+            for s in range(len(offs) - 1)]
+
+
+def same_boxes(a, b):
+    """Two lists of Box3D equal bit for bit."""
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        np.array_equal(x.to_array(), y.to_array()) and x.label == y.label
+        and x.score == y.score for x, y in zip(a, b))
+
+
+def stream_phase(det, golden):
+    """3g (b): ``predict_stream`` on the 8 golden scenes, threaded and
+    serial, must give ``predict``'s boxes bit for bit, in order; sweeps/s
+    of each beside a serial ``predict`` loop (best of 3 passes)."""
+    import torch
+
+    from tpu_pillars_torch import _build
+
+    scenes = golden_clouds(golden)
+    want = [det.predict(c) for c in scenes]
+    runs = {"predict loop": lambda: [det.predict(c) for c in scenes],
+            "predict_stream threaded": lambda: list(
+                det.predict_stream(iter(scenes))),
+            "predict_stream serial": lambda: list(
+                det.predict_stream(iter(scenes), threaded=False))}
+    rates = {}
+    _build.reset_launches()
+    for name, fn in runs.items():
+        best = math.inf
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = fn()
+            best = min(best, time.perf_counter() - t)
+            if not all(same_boxes(g, w) for g, w in zip(got, want)) or \
+                    len(got) != len(want):
+                fail(f"{name} differs from predict on the golden scenes")
+        rates[name] = len(scenes) / best
+    launches = _serving_launches("predict_stream")
+    print(f"predict_stream on the {len(scenes)} golden scenes (boxes equal "
+          f"predict's, bit for bit): " + ", ".join(
+              f"{k} {v:.2f} sweeps/s" for k, v in rates.items()))
+    return launches
+
+
+REF_SCENES = 2           # golden scenes the CPU reference runs (host time)
+SERVER_BURSTS = 3        # bursts of the 8 golden scenes sent to the server
+
+
+def reference_phase(cfg, det, golden):
+    """3g (c): ``Detector.from_torch`` of the trained checkpoint in the
+    reference's torch layout (``reference_cpu.convert.flax_to_torch``) must
+    serve the 8 golden scenes bit-equal to ``from_checkpoint``; the port's
+    ``CPUReferenceDetector`` on 2 golden scenes must match the golden JAX
+    detections and the card's boxes (:func:`check_boxes`). Prints the
+    reference's sweeps/s on the host (its torch thread count pinned), the
+    card's batch-8 sweeps/s on the 8 golden scenes (numpy clouds to host
+    boxes) and their ratio."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.detector import Detector, packed_to_boxes
+    from tpu_pillars_torch.reference_cpu import CPUReferenceDetector
+    from tpu_pillars_torch.reference_cpu.convert import flax_to_torch
+    from tpu_pillars_torch.weights import load_flax_msgpack
+
+    tree = load_flax_msgpack(CKPT)
+    sd = flax_to_torch({"params": tree["params"],
+                        "batch_stats": tree["batch_stats"]}, cfg)
+    scenes = golden_clouds(golden)
+    _build.reset_launches()
+    migrated = Detector.from_torch(cfg, sd)
+    for s, c in enumerate(scenes):
+        if not torch.equal(migrated.predict_packed(c), det.predict_packed(c)):
+            fail(f"Detector.from_torch differs from from_checkpoint on "
+                 f"golden scene {s}")
+    launches = _serving_launches("Detector.from_torch")
+    del migrated
+    print(f"Detector.from_torch (reference torch layout): the {len(scenes)} "
+          f"golden scenes equal from_checkpoint's bit for bit")
+
+    threads = torch.get_num_threads()
+    n_threads = min(8, os.cpu_count() or 1)
+    torch.set_num_threads(n_threads)
+    try:
+        ref = CPUReferenceDetector(cfg, sd)
+        ref.predict(scenes[0][:100])                    # warm-up
+        times = []
+        for s in range(REF_SCENES):
+            t = time.perf_counter()
+            got = ref.predict(scenes[s])
+            times.append(time.perf_counter() - t)
+            want = packed_to_boxes(golden["packed"][s], cfg)
+            check_boxes(got, want, f"{s} (CPU reference)")
+            check_boxes(got, det.predict(scenes[s]),
+                        f"{s} (CPU reference against the card)")
+    finally:
+        torch.set_num_threads(threads)
+    ref_sps = REF_SCENES / sum(times)
+
+    def card_batch():
+        pads = [det.pad_points(c) for c in scenes]
+        out = det.predict_packed_batch(np.stack([p for p, _ in pads]),
+                                       np.asarray([n for _, n in pads],
+                                                  np.int32))
+        return out.cpu().numpy()
+
+    card_batch()
+    runs = []
+    for _ in range(5):
+        t = time.perf_counter()
+        card_batch()
+        runs.append(time.perf_counter() - t)
+    card_sps = len(scenes) / float(np.median(runs))
+    print(f"CPU reference ({n_threads} torch threads, {os.cpu_count()} "
+          f"cores): {ref_sps:.3f} sweeps/s ({1 / ref_sps:.3f} s a sweep, "
+          f"{REF_SCENES} golden scenes, boxes match the JAX golden "
+          f"detections and the card's); the card at batch {BATCH} on the "
+          f"golden scenes: {card_sps:.2f} sweeps/s; ratio "
+          f"{card_sps / ref_sps:.1f}x")
+    return launches
+
+
+def served(boxes):
+    """Boxes as the server writes them: float() of each f32 value."""
+    return [{"center": [float(v) for v in b.center],
+             "wlh": [float(v) for v in b.wlh], "yaw": float(b.yaw),
+             "label": b.label, "score": float(b.score)} for b in boxes]
+
+
+def server_phase(cfg, det, golden, proc):
+    """3g (d): the server started by :func:`serving_surface`
+    (``python -m tpu_pillars_torch.serve --full-size --batch-size 8``) gets
+    the 8 golden scenes from 8 threads as binary ``/predict`` requests, in
+    ``SERVER_BURSTS`` bursts.
+    Each response must equal, exactly, the boxes of the call it rode
+    (``predict`` alone, or ``serve.predict_batch`` at batch 8) and the
+    golden JAX detections within :func:`check_boxes`; one response at
+    least must be batched; ``/healthz`` must name the card. Prints the
+    start-up, the latencies (p50, max) and the requests/s."""
+    import select
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch.detector import packed_to_boxes
+    from tpu_pillars_torch.geometry.boxes import Box3D
+    from tpu_pillars_torch.serve import predict_batch
+
+    ready, _, _ = select.select([proc.stdout], [], [], 300)
+    line = proc.stdout.readline() if ready else ""
+    if "serving on http://" not in line:
+        proc.kill()
+        fail(f"the server did not start: {line!r} "
+             f"{proc.communicate(timeout=60)[1][-3000:]}")
+    url = line.split()[2]
+    print(f"server: {line.strip()}")
+    with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+        health = json.loads(r.read())
+    if health.get("device") != torch.cuda.get_device_name(0):
+        fail(f"/healthz does not name the card: {health}")
+
+    scenes = golden_clouds(golden)
+    lat, batched, wall = [], [], 0.0
+    for _ in range(SERVER_BURSTS):
+        results, times = [None] * len(scenes), [0.0] * len(scenes)
+        start = threading.Barrier(len(scenes))
+
+        def fire(i):
+            pts = np.ascontiguousarray(scenes[i], np.float32)
+            req = urllib.request.Request(
+                url + "/predict", data=pts.tobytes(), method="POST",
+                headers={"Content-Type": "application/octet-stream",
+                         "X-Point-Count": str(len(pts))})
+            start.wait(timeout=60)
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                results[i] = json.loads(r.read())
+            times[i] = (time.perf_counter() - t) * 1e3
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=fire, args=(i,))
+                   for i in range(len(scenes))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall += time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or None in results:
+            fail("a request to the server got no answer")
+        for s, r in enumerate(results):
+            exact = (det.predict(scenes[s]) if r["batched"] == 1 else
+                     predict_batch(det, [scenes[s]], BATCH)[0])
+            if r["boxes"] != served(exact):
+                fail(f"server, golden scene {s}: the boxes differ from the "
+                     f"{'single' if r['batched'] == 1 else 'batch'} call's")
+            got = [Box3D(np.asarray(b["center"]), np.asarray(b["wlh"]),
+                         b["yaw"], label=b["label"], score=b["score"])
+                   for b in r["boxes"]]
+            check_boxes(got, packed_to_boxes(golden["packed"][s], cfg),
+                        f"{s} (server)")
+        lat += times
+        batched.append([r["batched"] for r in results])
+    if max(max(b) for b in batched) < 2:
+        fail(f"the server batched no request: {batched}")
+    n = SERVER_BURSTS * len(scenes)
+    print(f"server: {SERVER_BURSTS} bursts of {len(scenes)} concurrent "
+          f"requests, batched {batched}, boxes equal the calls they rode and "
+          f"the golden JAX detections; latency p50 "
+          f"{float(np.median(lat)):.1f} ms, max {max(lat):.1f} ms; "
+          f"{n / wall:.2f} requests/s")
+    return {"batched": batched}
+
+
+def multisweep_phase(cfg):
+    """3g (e): a 3-sweep Lyft-format fixture at the density of
+    scripts/rehearsal_dataset.py; a ``SweepAccumulator`` fed its sweeps in
+    time order must equal ``load_sweeps`` bit for bit on every keyframe;
+    the accumulated clouds served at ``num_sweeps=3`` by a seeded random
+    model's checkpoint (the port's ``train.checkpoint``) launch K1-K4 and
+    give the same boxes twice."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.data.fixture import build_fixture
+    from tpu_pillars_torch.data.lyft import LyftDataset
+    from tpu_pillars_torch.data.stream import SweepAccumulator
+    from tpu_pillars_torch.detector import Detector
+    from tpu_pillars_torch.train.checkpoint import save_checkpoint
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+
+    ms = dataclasses.replace(cfg, num_sweeps=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = LyftDataset(build_fixture(
+            os.path.join(tmp, "lyft"), ms, num_scenes=1, samples_per_scene=3,
+            sweeps_per_sample=3, seed=SEED, num_objects=25,
+            points_per_object=300, clutter=25_000))
+        acc = SweepAccumulator(3)
+        clouds = []
+        for sd in sorted(ds.tables["sample_data"].values(),
+                         key=lambda r: r["timestamp"]):
+            cloud = acc.push(ds.load_point_cloud(sd), ds.lidar_to_global(sd),
+                             sd["timestamp"])
+            if sd.get("is_key_frame"):
+                if not np.array_equal(
+                        cloud, ds.load_sweeps(sd["sample_token"], 3)):
+                    fail("SweepAccumulator differs from load_sweeps on a "
+                         "keyframe")
+                clouds.append(cloud[:, [0, 1, 2, 3, 5]])  # drop the ring
+        if len(clouds) != 3:
+            fail(f"the fixture gave {len(clouds)} keyframes, not 3")
+        path = os.path.join(tmp, "ms.msgpack")
+        save_checkpoint(path, create_train_state(
+            ms, TrainConfig(batch_size=1), seed=SEED), config=ms)
+        det = Detector.from_checkpoint(ms, path)
+    _build.reset_launches()
+    first = [det.predict(c) for c in clouds]
+    launches = _serving_launches("the multi-sweep stream")
+    if not all(same_boxes(a, det.predict(c)) for a, c in zip(first, clouds)):
+        fail("the multi-sweep stream's boxes differ between two predicts")
+    print(f"multi-sweep stream: SweepAccumulator equals load_sweeps on 3 "
+          f"keyframes ({', '.join(str(len(c)) for c in clouds)} points), "
+          f"served at num_sweeps=3: {[len(b) for b in first]} boxes, the "
+          f"same twice; launches {launches}")
+    return launches
 
 
 def anchor_major_serving(cfg, points, counts, golden):

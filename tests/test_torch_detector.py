@@ -113,6 +113,15 @@ def test_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError):
         tdet.Detector(cfg, sd)
     assert tdet.Detector(cfg, sd, device="cpu").device.type == "cpu"
+    from tpu_pillars_torch.reference_cpu.convert import flax_to_torch
+
+    ref_sd = flax_to_torch(random_variables(tiny_config(), seed=5), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdet.Detector.from_torch(cfg, ref_sd)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdet.Detector(cfg, sd, wire_dtype=torch.int16)
+    assert tdet.Detector.from_torch(cfg, ref_sd,
+                                    device="cpu").device.type == "cpu"
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "tpu_pillars"}
@@ -147,7 +156,10 @@ def test_port_imports_no_jax():
                    "utils/tensorboard.py", "train/data.py",
                    "data/augment.py", "data/gt_sampler.py",
                    "models/pfn.py", "models/head.py",
-                   "ops/target_assigner.py", "ops/postprocess.py"):
+                   "ops/target_assigner.py", "ops/postprocess.py",
+                   "serve.py", "data/stream.py", "reference_cpu/__init__.py",
+                   "reference_cpu/pillarizer.py", "reference_cpu/model.py",
+                   "reference_cpu/convert.py", "reference_cpu/pipeline.py"):
         assert os.path.join("tpu_pillars_torch", module) in rel, module
     for path in files:
         for mod in _imports(path):

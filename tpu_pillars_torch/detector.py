@@ -1,6 +1,5 @@
 """Detector — the port's public inference API: raw point cloud ->
-``List[Box3D]``. Port of ``tpu_pillars/detector.py`` (serving path, f32
-wire).
+``List[Box3D]``. Port of ``tpu_pillars/detector.py``.
 
 Stage 1 (points -> wire tensors) has two front ends, chosen as the JAX
 package chooses them (:func:`use_fused_frontend`):
@@ -24,7 +23,12 @@ plain functions over a loaded ``PointPillars``; ``Detector`` runs stage 1
 through :func:`build_model_fn` and stage 2 through
 :func:`build_postprocess_fn`.
 Everything runs on ``device``; the only host transfers are the padded cloud
-in and one packed (D, 10) array out.
+in and one packed (D, 10) array out. The cloud crosses in ``wire_dtype``:
+f32, or one of the JAX package's two 2-byte wires (f16, or int16 fixed
+point with per-channel scales), converted to f32 on the card.
+:meth:`Detector.predict_stream` pipelines a sequence of sweeps;
+:meth:`Detector.from_torch` serves weights in the CPU reference's torch
+layout (``reference_cpu``).
 
 The device defaults to ``"cuda"``: with no GPU the constructor raises
 unless the caller passes ``device="cpu"``, where the kernels' plain
@@ -33,6 +37,8 @@ versions run instead.
 
 from __future__ import annotations
 
+import os
+from collections import deque
 from typing import List, Optional
 
 import numpy as np
@@ -178,6 +184,26 @@ def build_forward_fn(model: PointPillars, config: PillarsConfig,
     return forward
 
 
+# the wire dtypes of the host -> device upload, and their numpy types
+WIRE_DTYPES = {torch.float32: np.float32, torch.float16: np.float16,
+               torch.int16: np.int16}
+
+
+def int16_wire_scales(config: PillarsConfig) -> np.ndarray:
+    """Per-channel scales of the int16 fixed-point wire, as the JAX
+    package sets them: coordinates at span * 1.25 / 32767 (the 1.25 puts
+    the 32767 pad sentinel out of the detection range), intensity at 0.01,
+    the multi-sweep dt channel at 1/8192."""
+    f = config.num_input_features
+    span = max(abs(config.x_min), abs(config.x_max), abs(config.y_min),
+               abs(config.y_max), abs(config.z_min), abs(config.z_max))
+    scales = np.full((f,), 0.01, np.float32)
+    scales[:3] = span * 1.25 / 32767.0
+    if config.num_sweeps > 1:
+        scales[f - 1] = 1.0 / 8192.0
+    return scales
+
+
 class Detector:
     """Host-facing wrapper: pads clouds to the static budget, runs the
     two stages, converts to Box3D (optionally into the global frame)."""
@@ -187,8 +213,18 @@ class Detector:
                  wire_buckets: "Optional[tuple]" = None,
                  fused_frontend: Optional[bool] = None,
                  use_pallas_pfn: bool = True, dtype=torch.float32,
-                 nms_impl: str = "auto"):
+                 nms_impl: str = "auto", wire_dtype=torch.float32):
         """state_dict: ``weights.params_from_flax`` output.
+
+        wire_dtype: the dtype of the host -> device point upload, as the
+        JAX ``Detector(wire_dtype=)``: ``torch.float32`` (default),
+        ``torch.float16`` or ``torch.int16``. The 2-byte wires halve the
+        upload and move boxes (they are not bit-for-boxes with f32):
+        float16 quantizes coordinates to ~5 cm at 100 m; int16 is fixed
+        point with the per-channel scales of :func:`int16_wire_scales`
+        (~3 mm at the full config). ``pad_points`` returns the wire dtype,
+        it crosses to the card as it is, and the card converts it to f32
+        (one multiply by the scales for int16) before stage 1.
 
         nms_impl: the NMS of stage 2 (:func:`build_postprocess_fn`): "auto"
         (default; K4 on the card, the dense fixpoint on the CPU); "pallas"
@@ -214,10 +250,23 @@ class Detector:
         be config.max_points); each sweep pads to the smallest bucket that
         fits its (cropped) cloud."""
         config.validate()
+        if wire_dtype not in WIRE_DTYPES:
+            raise TypeError(f"wire_dtype must be torch.float32, "
+                            f"torch.float16 or torch.int16, got {wire_dtype}")
         self.config = config
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # a concrete card, so that a thread of its own (the server's
+            # dispatcher, predict_stream's producer) can make it current
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.truncation = TruncationStats()
         self.host_crop = host_crop
+        self.wire_dtype = wire_dtype
+        self._wire_np = np.dtype(WIRE_DTYPES[wire_dtype])
+        self._wire_scales = (int16_wire_scales(config)
+                             if wire_dtype == torch.int16 else None)
+        self._scales_t = (None if self._wire_scales is None else
+                          torch.from_numpy(self._wire_scales).to(self.device))
         if wire_buckets is not None:
             wire_buckets = tuple(sorted(int(b) for b in wire_buckets))
             if wire_buckets[-1] != config.max_points:
@@ -267,6 +316,26 @@ class Detector:
                      "batch_stats": tree["batch_stats"]}
         return cls(config, params_from_flax(variables, config), **kw)
 
+    @classmethod
+    def from_torch(cls, config: PillarsConfig, state_dict_or_path, **kw
+                   ) -> "Detector":
+        """Migration: serve weights in the CPU reference's torch layout
+        (``reference_cpu.model.TorchPointPillars``): a state dict, the path
+        of a ``torch.save`` of one, or the whole module. Goes
+        ``reference_cpu.convert.torch_to_flax`` -> ``weights.params_from_
+        flax`` -> ``Detector(config, ..., **kw)``, on the card unless
+        ``device="cpu"`` is passed."""
+        from tpu_pillars_torch.reference_cpu.convert import torch_to_flax
+        from tpu_pillars_torch.weights import params_from_flax
+
+        sd = state_dict_or_path
+        if isinstance(sd, (str, bytes, os.PathLike)):
+            sd = torch.load(sd, map_location="cpu", weights_only=True)
+        if isinstance(sd, torch.nn.Module):
+            sd = sd.state_dict()
+        return cls(config, params_from_flax(torch_to_flax(sd, config),
+                                            config), **kw)
+
     # --- stages (device tensors, static shapes) ---
 
     def canvas(self, points: torch.Tensor, num_points: torch.Tensor):
@@ -282,18 +351,35 @@ class Detector:
     def postprocess(self, own, box_p, dir_p) -> Detections:
         return self._post(own, box_p, dir_p)
 
-    def _to_device(self, x, dtype):
+    def upload(self, x) -> torch.Tensor:
+        """A host array or tensor -> the same dtype on ``self.device``. No
+        dtype change on the way: torch converts on the host before a copy,
+        so the card would receive the converted bytes."""
         if not torch.is_tensor(x):
             x = torch.from_numpy(np.ascontiguousarray(x))
-        return x.to(self.device, dtype)
+        return x.to(self.device)
+
+    def dequant(self, points: torch.Tensor) -> torch.Tensor:
+        """Uploaded wire points -> f32 on their device: ``.float()``, then
+        for the int16 wire one multiply by the per-channel scales (JAX's
+        ``points.astype(f32) * scales``)."""
+        p = points.float()
+        return p if self._scales_t is None else p * self._scales_t
+
+    def bind_thread(self) -> None:
+        """Make the detector's card the calling thread's current device
+        (the current CUDA device is per thread)."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
 
     # --- raw (device tensors) ---
 
     def pad_points(self, points: np.ndarray):
-        """Pad/crop to a static (M, F) f32 upload. F is pinned by the
-        config; extra columns are dropped, missing ones are an error.
-        Clouds beyond the budget keep their FIRST max_points (in-range) rows;
-        the drop is counted in self.truncation and warned."""
+        """Pad/crop to a static (M, F) upload in the wire dtype. F is pinned
+        by the config; extra columns are dropped, missing ones are an
+        error. Clouds beyond the budget keep their FIRST max_points
+        (in-range) rows; the drop is counted in self.truncation and
+        warned."""
         cfg = self.config
         f_expect = cfg.num_input_features
         points = np.asarray(points, dtype=np.float32)
@@ -318,16 +404,25 @@ class Detector:
         m = cfg.max_points
         if self.wire_buckets is not None:
             m = next(b for b in self.wire_buckets if b >= n)
-        # pad with a finite out-of-range sentinel
-        out = np.full((m, f_expect), 1e6, dtype=np.float32)
-        out[:n] = points[:n, :f_expect]
+        if self._wire_scales is not None:
+            # int16 fixed point: per-channel quantize; 32767 is the pad
+            # sentinel (it dequantizes out of the detection range)
+            out = np.full((m, f_expect), 32767, dtype=np.int16)
+            q = np.round(points[:n, :f_expect] / self._wire_scales)
+            out[:n] = np.clip(q, -32767, 32767).astype(np.int16)
+        else:
+            # pad with a finite out-of-range sentinel (f16's max is ~65504)
+            pad = 1e6 if self._wire_np.itemsize >= 4 else 3e4
+            out = np.full((m, f_expect), pad, dtype=self._wire_np)
+            out[:n] = points[:n, :f_expect]
         self.truncation.record(len(points), n, label="pad_points")
         return out, np.int32(n)
 
     def predict_raw_batch(self, points_batch, num_points) -> Detections:
-        """points_batch (B, M, F) already padded; num_points (B,)."""
-        points = self._to_device(points_batch, torch.float32)
-        counts = self._to_device(num_points, torch.int64)
+        """points_batch (B, M, F) already padded, in the wire dtype;
+        num_points (B,)."""
+        points = self.dequant(self.upload(points_batch))
+        counts = self.upload(num_points).long()
         return self.postprocess(*self._stage1(points, counts))
 
     def predict_raw(self, points: np.ndarray) -> Detections:
@@ -354,6 +449,38 @@ class Detector:
         return packed_to_boxes(packed, self.config, token=token,
                                lidar_to_global=lidar_to_global)
 
+    def predict_stream(self, clouds, depth: int = 3, threaded: bool = True):
+        """Pipelined serving: yields List[Box3D] per input cloud, in input
+        order, keeping up to ``depth`` sweeps in flight.
+
+        threaded (default): a producer thread (``train.prefetch``) pads,
+        uploads and launches while the consumer downloads the results, so
+        the host pad of sweep k+1 overlaps the card's work on sweep k. Both
+        threads use the card's default stream, so a download waits for
+        everything queued before it. threaded=False keeps one thread and a
+        deque of ``depth`` launched sweeps. Both give the boxes of
+        :meth:`predict`."""
+        if threaded:
+            from tpu_pillars_torch.train.prefetch import prefetch
+
+            def launched():
+                self.bind_thread()
+                for points in clouds:
+                    yield self.predict_packed(points)
+
+            for out in prefetch(launched(), size=depth):
+                yield packed_to_boxes(out.cpu().numpy(), self.config)
+            return
+        pending: "deque" = deque()
+        for points in clouds:
+            pending.append(self.predict_packed(points))
+            if len(pending) > depth:
+                yield packed_to_boxes(pending.popleft().cpu().numpy(),
+                                      self.config)
+        while pending:
+            yield packed_to_boxes(pending.popleft().cpu().numpy(),
+                                  self.config)
+
 
 def pack_detections(det: Detections) -> torch.Tensor:
     """Detections -> (..., D, 10) f32 [x,y,z,w,l,h,yaw,score,class,valid]."""
@@ -377,3 +504,14 @@ def packed_to_boxes(packed: np.ndarray, config: PillarsConfig,
                                   lidar_to_global.translation)
         out.append(box)
     return out
+
+
+def detections_to_boxes(det: Detections, config: PillarsConfig,
+                        token: str = "",
+                        lidar_to_global: Optional[Pose] = None
+                        ) -> List[Box3D]:
+    """One sweep's ``Detections`` (tensors on any device) -> List[Box3D],
+    optionally in the global frame: :func:`packed_to_boxes` of its packed
+    rows."""
+    return packed_to_boxes(pack_detections(det).cpu().numpy(), config,
+                           token=token, lidar_to_global=lidar_to_global)
