@@ -92,6 +92,28 @@ line:
      fixture equal to ``load_sweeps`` on its keyframes, the clouds served
      at ``num_sweeps=3`` from a seeded model's checkpoint (K1-K4
      launched, the same boxes twice).
+     3h. The native sweep loader and multi-sweep training, then export,
+     profiling and visualisation. (a) A 10-sweep Lyft-format fixture (8
+     samples of 5 sweeps, at the density of scripts/rehearsal_dataset.py):
+     the native loader (``data/native_io.py``, built with ``g++``) equal to
+     its numpy path bit for bit with the same ``IO_TRUNCATION`` counts, ms
+     a sample for each. (b) ``multisweep_config()`` (10 sweeps, 262,144
+     points, 20,000 pillars) trains 4 steps of ``fit`` at batch 8 on
+     ``dataset_batches(use_native=True, num_workers=4)``: finite losses, K1,
+     K3 and K5 launched, the loader's ms a batch beside the step's. (c)
+     ``export.export_inference`` of ``PillarsConfig()`` from the trained
+     checkpoint at batch 8, ``load_inference``, the 8 golden scenes through
+     the artifact bit-equal to the live ``Detector`` and the JAX detections
+     (185 boxes), K1-K4 launched by the artifact's own run; export
+     seconds, bytes, ms a batch for the artifact and the live ``Detector``.
+     (d) ``utils.profiling.StageTimer`` over the serving batch (pad,
+     upload, canvas, wire, postprocess) and ``trace`` over one batch: the
+     trace file names K1-K4's ``__global__`` functions; the card's busy
+     share of the batch is printed; the host time of the K1, K2 and K4
+     wrappers, thin calls of their ``tpu_pillars`` ops, beside their CUDA
+     implementations called directly. (e) Golden scene 0 rendered through
+     ``scripts/torch_visualize.py``'s functions, saved as a PNG and read
+     back.
   5. Evaluation (run before training): the held-out mAP of the 8 golden
      scenes on the card (``evaluate_scenes``) within 1e-3 of the port's
      scorer on the golden JAX detections; ``predict_tta`` (4 views, WBF)
@@ -550,6 +572,10 @@ def main() -> None:
     # ---- phase 3g: the serving surface (wires, predict_stream, from_torch
     # and the CPU reference, the HTTP server, the multi-sweep stream)
     surface = serving_surface(cfg, card, clouds, golden)
+
+    # ---- phase 3h: the native sweep loader and multi-sweep training, then
+    # export, profiling and visualisation
+    phase_3h(cfg, card, clouds, golden)
 
     # ---- phase 5 (run before training): evaluation on the card
     evaluation(cfg, golden)
@@ -1162,6 +1188,356 @@ def serving_surface(cfg, card, clouds, golden):
     torch.cuda.empty_cache()
     print(f"phase 3g ({card}): {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+def phase_3h(cfg, card, clouds, golden):
+    """Phase 3h: the native sweep loader and multi-sweep training, then
+    export, profiling and visualisation. Returns the launches of the
+    artifact's own golden run."""
+    import tempfile
+
+    import torch
+
+    from tpu_pillars_torch.detector import Detector
+
+    t_phase = time.perf_counter()
+    det = Detector.from_checkpoint(cfg, CKPT)
+    with tempfile.TemporaryDirectory() as tmp:
+        multisweep_training(card, tmp)
+        launches = export_phase(cfg, card, det, golden, tmp)
+        profiling_phase(det, clouds, tmp)
+        dispatch_cost(cfg)
+        visualisation_phase(cfg, det, golden, tmp)
+    del det
+    torch.cuda.empty_cache()
+    print(f"phase 3h ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def multisweep_training(card, tmp):
+    """3h (a) and (b): a 10-sweep Lyft-format fixture (8 samples of 5
+    sweeps each, whose chains run into the previous sample's sweeps) at the
+    density of scripts/rehearsal_dataset.py. The native loader (``g++``
+    build) must equal the numpy path bit for bit with the same
+    ``IO_TRUNCATION`` counts; ms a sample for each. Then
+    ``multisweep_config()`` (10 sweeps, 262,144 points, 20,000 pillars)
+    trains 4 steps of ``fit`` at batch 8 from a seeded model on
+    ``dataset_batches(use_native=True, num_workers=4)`` with the global
+    augmentation: finite losses, K1, K3 and K5 launched; the loader's ms
+    a batch beside the step's."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.config import multisweep_config
+    from tpu_pillars_torch.data import native_io
+    from tpu_pillars_torch.data.augment import AugmentConfig
+    from tpu_pillars_torch.data.fixture import build_fixture
+    from tpu_pillars_torch.data.lyft import LyftDataset
+    from tpu_pillars_torch.train.data import dataset_batches
+    from tpu_pillars_torch.train.loop import fit
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+    from tpu_pillars_torch.train.step import make_train_step
+    from tpu_pillars_torch.utils.truncation import IO_TRUNCATION
+
+    ms = multisweep_config()
+    t0 = time.perf_counter()
+    if not native_io.native_available():
+        fail(f"the native loader did not build: {native_io.native_error()}")
+    build_s = time.perf_counter() - t0
+    ds = LyftDataset(build_fixture(
+        os.path.join(tmp, "sweeps"), ms, num_scenes=2, samples_per_scene=4,
+        sweeps_per_sample=5, seed=SEED, num_objects=25,
+        points_per_object=300, clutter=25_000))
+    tokens = ds.sample_tokens()
+    per_path, times = {}, {True: [], False: []}
+    for rep in range(2):                     # the first pass warms the files
+        for use_native in (True, False):
+            IO_TRUNCATION.reset()
+            out = []
+            for tok in tokens:
+                t = time.perf_counter()
+                out.append(ds.load_sweeps_padded(tok, ms,
+                                                 use_native=use_native))
+                times[use_native].append((time.perf_counter() - t) * 1e3)
+            per_path[use_native] = (out, (
+                IO_TRUNCATION.clouds, IO_TRUNCATION.truncated_clouds,
+                IO_TRUNCATION.dropped_points))
+    (nat, nat_io), (npy, npy_io) = per_path[True], per_path[False]
+    for k, ((a, na), (b, nb)) in enumerate(zip(nat, npy)):
+        if na != nb or not np.array_equal(a, b):
+            fail(f"the native loader differs from the numpy path on "
+                 f"sample {k}")
+    if nat_io != npy_io:
+        fail(f"IO_TRUNCATION differs: native {nat_io}, numpy {npy_io}")
+    n = len(tokens)
+    nat_ms = float(np.median(times[True][n:]))
+    npy_ms = float(np.median(times[False][n:]))
+    print(f"native loader ({card}): g++ build {build_s:.2f} s; "
+          f"{len(ds._sweep_chain(tokens[-1], ms.num_sweeps)[0])} sweeps a "
+          f"sample, {np.mean([int(c) for _, c in nat]):.0f} points kept of "
+          f"the {ms.max_points} budget; bit-equal to the numpy path on "
+          f"{n} samples, IO_TRUNCATION (clouds, truncated, dropped) "
+          f"{nat_io} on both; {nat_ms:.2f} ms a sample native, "
+          f"{npy_ms:.2f} ms numpy (median of {n}, warm files)")
+
+    tcfg = TrainConfig(learning_rate=1e-3, total_steps=4, batch_size=BATCH)
+    state = create_train_state(ms, tcfg, seed=SEED)
+    step = make_train_step(ms)
+    step_ms, loader_ms, losses = [], [], []
+
+    def timed_loader():
+        it = dataset_batches(ds, ms, BATCH, tcfg.max_gt_boxes,
+                             augment=AugmentConfig(), seed=SEED,
+                             use_native=True, num_workers=4)
+        try:
+            while True:
+                t = time.perf_counter()
+                b = next(it)
+                loader_ms.append((time.perf_counter() - t) * 1e3)
+                yield b
+        finally:
+            it.close()
+
+    def timed(st, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st, out = step(st, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append([float(x) for x in (out.total, out.cls, out.loc,
+                                          out.dir)])
+        return st, out
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    state = fit(state, timed_loader(), 4, step_fn=timed, config=ms)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    if len(losses) != 4 or not np.isfinite(losses).all():
+        fail(f"multi-sweep training gave non-finite losses: {losses}")
+    for name in ("emit", "bev_scatter", "assign"):
+        if launches[name] == 0:
+            fail(f"kernel {name} did not launch in multi-sweep training")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med_step = float(np.median(step_ms[1:]))
+    med_load = float(np.median(loader_ms[1:]))
+    print(f"multi-sweep training ({card}): multisweep_config() at batch "
+          f"{BATCH}, 4 steps of fit on dataset_batches(use_native=True, 4 "
+          f"workers): losses {[round(x[0], 4) for x in losses]}; step "
+          f"{med_step:.2f} ms, loader {med_load:.2f} ms a batch (medians "
+          f"after the first: {loader_ms[0]:.1f} / {step_ms[0]:.1f} ms); "
+          f"peak {peak:.2f} GiB; launches {launches}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def export_phase(cfg, card, det, golden, tmp):
+    """3h (c): ``PillarsConfig()`` exported from the golden checkpoint on
+    the card at batch 8, loaded back with ``load_inference``; the 8 golden
+    scenes through the artifact must equal the live ``Detector`` bit for
+    bit and the JAX detections (185 boxes), with K1-K4 launched by the
+    artifact's own run. Export seconds, artifact bytes, ms a batch of 8 for
+    the artifact and the live ``Detector``."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.detector import packed_to_boxes
+    from tpu_pillars_torch.export import export_inference, load_inference
+
+    path = os.path.join(tmp, "artifact")
+    t0 = time.perf_counter()
+    export_inference(cfg, det.model.state_dict(), path, batch_sizes=(BATCH,))
+    export_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    t0 = time.perf_counter()
+    art = load_inference(path)
+    load_s = time.perf_counter() - t0
+    scenes = golden_clouds(golden)
+    padded = [art.pad_points(c) for c in scenes]
+    pts = torch.from_numpy(np.stack([p for p, _ in padded])).to(det.device)
+    cnt = torch.from_numpy(np.asarray([n for _, n in padded])).to(det.device)
+    _build.reset_launches()
+    got = art.predict_packed_batch(pts, cnt)
+    torch.cuda.synchronize()
+    launches = _serving_launches("the exported artifact's run")
+    want = det.predict_packed_batch(pts, cnt)
+    if not torch.equal(got, want):
+        fail("the exported artifact differs from the live Detector")
+    got = got.cpu().numpy()
+    n_boxes = 0
+    for s in range(len(scenes)):
+        boxes = packed_to_boxes(got[s], cfg)
+        check_boxes(boxes, packed_to_boxes(golden["packed"][s], cfg), s)
+        n_boxes += len(boxes)
+    art_ms = cuda_ms(lambda: art.predict_packed_batch(pts, cnt), 5)
+    live_ms = cuda_ms(lambda: det.predict_packed_batch(pts, cnt), 5)
+    files = ", ".join(sorted(os.listdir(path)))
+    print(f"export ({card}): PillarsConfig() at batch {BATCH} in "
+          f"{export_s:.2f} s, {size} bytes ({files}), loaded in "
+          f"{load_s:.2f} s; the {len(scenes)} golden scenes: "
+          f"bit-equal to the live Detector, {n_boxes} boxes match the JAX "
+          f"detections; launches by the artifact {launches}; "
+          f"{art_ms:.2f} ms a batch of {BATCH} (artifact), {live_ms:.2f} ms "
+          f"(live)")
+    return launches
+
+
+def profiling_phase(det, clouds, tmp):
+    """3h (d): ``StageTimer`` over the serving batch of 8 (pad, upload,
+    canvas, wire, postprocess; 5 batches after a warm-up, mean ms), then
+    ``trace`` over one batch: the trace file must name the ``__global__``
+    functions of K1-K4; the card's busy share of the traced batch (the
+    union of its kernel, copy and memset intervals over the batch's host
+    span, a ``record_function``) is printed."""
+    import numpy as np
+    from torch.profiler import record_function
+
+    from tpu_pillars_torch.utils.profiling import (
+        StageTimer, trace, trace_files,
+    )
+
+    def batch(timer):
+        with timer.stage("pad"):
+            padded = [det.pad_points(c) for c in clouds]
+            pts = np.stack([p for p, _ in padded])
+            cnt = np.asarray([n for _, n in padded])
+        with timer.stage("upload"):
+            pts_t = timer.observe(det.upload(pts))
+            cnt_t = timer.observe(det.upload(cnt).long())
+        with timer.stage("canvas"):
+            canvas = timer.observe(det.canvas(pts_t, cnt_t))
+        with timer.stage("wire"):
+            wire = timer.observe(det.wire(canvas))
+        with timer.stage("postprocess"):
+            out = timer.observe(det.postprocess(*wire))
+        return out
+
+    batch(StageTimer())
+    timer = StageTimer()
+    for _ in range(5):
+        batch(timer)
+    means = {k: v["mean_ms"] for k, v in timer.summary().items()}
+    print(f"StageTimer, serving batch of {len(clouds)} (mean of 5, ms): "
+          f"{json.dumps(means)}")
+
+    log_dir = os.path.join(tmp, "trace")
+    with trace(log_dir):
+        with record_function("serving_batch"):
+            batch(StageTimer())
+    files = trace_files(log_dir)
+    if len(files) != 1:
+        fail(f"trace wrote {len(files)} files under {log_dir}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    names = " ".join({e["name"] for e in kernels})
+    for k, fn in (("K1", "emit_rows_kernel"), ("K2", "fpfn_kernel"),
+                  ("K3", "bev_scatter_kernel"), ("K4", "nms_overlap_kernel")):
+        if fn not in names:
+            fail(f"the trace names no {fn} ({k})")
+    call = [e for e in events if e.get("name") == "serving_batch"
+            and e.get("cat") == "user_annotation"]
+    if not call:
+        fail("the trace holds no serving_batch span")
+    c0, c1 = call[0]["ts"], call[0]["ts"] + call[0]["dur"]
+    busy = sorted((max(e["ts"], c0), min(e["ts"] + e["dur"], c1))
+                  for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    union, end = 0.0, c0
+    for s, e in busy:
+        if e > end:
+            union += e - max(s, end)
+            end = e
+    print(f"trace: {os.path.basename(files[0])}, "
+          f"{os.path.getsize(files[0])} bytes, {len(kernels)} kernel "
+          f"events, K1-K4 named; the card busy {union / 1e3:.3f} ms of the "
+          f"batch's {(c1 - c0) / 1e3:.3f} ms host span (busy share "
+          f"{union / (c1 - c0):.4f}, idle {1 - union / (c1 - c0):.4f}; the "
+          f"profiler on)")
+
+
+def dispatch_cost(cfg, calls: int = 200, reps: int = 5):
+    """3h (d): the host time of a wrapper that is a thin call of its
+    ``tpu_pillars`` op against its CUDA implementation called directly,
+    for K1 (five arguments, two outputs), K2 (ten, three) and K4 (two,
+    one) at the serving batch's shapes: ``calls`` calls made back to back
+    (the launch queue holds them, so the host's own time is what is
+    timed), the card synchronised between reps, the two alternating;
+    median µs a call."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch.ops import emit, fused_pfn, nms_overlap
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    hw = cfg.grid_h * cfg.grid_w
+    gid = torch.sort(torch.randint(0, hw + 1, (BATCH, cfg.max_points),
+                                   device="cuda", generator=gen)).values
+    k1 = (gid.to(torch.int32), torch.rand((BATCH, cfg.max_points, 4),
+                                          device="cuda", generator=gen),
+          cfg.max_points_per_pillar, cfg.max_pillars, hw)
+    boxes = torch.rand((BATCH, 500, 7), device="cuda", generator=gen) \
+        * torch.tensor([100.0, 100.0, 2.0, 2.0, 5.0, 2.0, 3.0],
+                       device="cuda") + 0.5
+    k4 = (boxes, 0.2)
+    w_eff = torch.rand((4, cfg.pfn_channels), device="cuda", generator=gen)
+    w_dec = torch.rand((8, cfg.pfn_channels), device="cuda", generator=gen)
+    table_meta = emit.emit_table(*k1)
+    pairs = {"K1": (emit.emit_table, emit.emit_table_cuda, k1),
+             "K2": (lambda *a: fused_pfn.pfn_from_table(*a, cfg),
+                    lambda *a: fused_pfn.pfn_from_table_cuda(
+                        *a, *fused_pfn.geometry(cfg)),
+                    (*table_meta, w_eff, w_dec)),
+             "K4": (nms_overlap.overlap_matrix,
+                    nms_overlap.overlap_matrix_cuda, k4)}
+    out = {}
+    for k, (wrapper, direct, args) in pairs.items():
+        times = {wrapper: [], direct: []}
+        for fn in (wrapper, direct):
+            fn(*args)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            for fn in (wrapper, direct):
+                t = time.perf_counter()
+                for _ in range(calls):
+                    fn(*args)
+                times[fn].append((time.perf_counter() - t) / calls * 1e6)
+                torch.cuda.synchronize()
+        out[k] = (float(np.median(times[wrapper])),
+                  float(np.median(times[direct])))
+    print("op dispatch, host us a call through the op / the CUDA "
+          "implementation direct (median of " f"{reps} x {calls}): "
+          + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in out.items()))
+
+
+def visualisation_phase(cfg, det, golden, tmp):
+    """3h (e): golden scene 0 rendered through scripts/torch_visualize.py's
+    functions (its points, the card's boxes class-coloured, the JAX
+    detections in green), saved as a PNG and read back."""
+    import numpy as np
+
+    from tpu_pillars_torch.detector import packed_to_boxes
+    from tpu_pillars_torch.utils.viz import save_png
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_visualize
+
+    points = golden_clouds(golden)[0]
+    boxes, cls, _ = torch_visualize.predict_boxes(det, points)
+    img = torch_visualize.render(points, cfg,
+                                 packed_to_boxes(golden["packed"][0], cfg),
+                                 boxes, cls, size=1000)
+    path = os.path.join(tmp, "golden0.png")
+    save_png(path, img)
+    back = torch_visualize.read_png(path)
+    if back.shape != (1000, 1000, 3) or not np.array_equal(back, img):
+        fail(f"the PNG read back as {back.shape}, not the rendered image")
+    print(f"visualisation: golden scene 0, {len(points)} points, "
+          f"{len(boxes)} boxes, {os.path.getsize(path)} bytes of PNG read "
+          f"back as {back.shape}")
 
 
 def _serving_launches(where):

@@ -1562,3 +1562,107 @@ def test_iou_tiled_wrapper_refuses_wrong_inputs(dev):
             torch.zeros((1, 8, 4), device=dev), torch.zeros((4, 8),
                                                             device=dev),
             torch.zeros((8, 8), device=dev), CFG)
+
+
+# ---- the ops of the tpu_pillars namespace (_build.kernel_op) -------------
+
+def test_kernel_ops_equal_plain_versions(dev):
+    """Each ``tpu_pillars`` op called as an exported graph calls it, on card
+    tensors, launches its kernel once and equals the wrapper's plain
+    version as the wrapper's own card test holds it (K1, K3 bit for bit;
+    K2 bit for bit; K6 to 1e-5; K4 outside the threshold's rounding band);
+    the fixpoint op equals its loop on either device."""
+    from tpu_pillars_torch.ops import nms
+
+    ops = torch.ops.tpu_pillars
+
+    cfg, gid, pts = _sorted_centered("random", dev)
+    P, N, HW = cfg.max_pillars, cfg.max_points_per_pillar, \
+        cfg.grid_h * cfg.grid_w
+    _build.reset_launches()
+    table, meta = ops.emit_table(gid, pts, N, P, HW)
+    assert _build.LAUNCHES["emit"] == 1
+    table_p, meta_p = emit.emit_table_plain(gid, pts, N, P, HW)
+    assert torch.equal(table, table_p) and torch.equal(meta, meta_p)
+
+    sd = _random_state_dict(cfg, 3)
+    model = PointPillars(cfg)
+    model.load_state_dict(sd)
+    w, b = model.to(dev).pfn.folded()
+    w_eff, w_dec = fused_pfn.fold_decoration(w, b, cfg)
+    got = ops.pfn_from_table(table, meta, w_eff, w_dec,
+                             *fused_pfn.geometry(cfg))
+    assert _build.LAUNCHES["fused_pfn"] == 1
+    want = fused_pfn.pfn_from_table_plain(table, meta, w_eff, w_dec, cfg)
+    for g, p in zip(got, want):
+        assert torch.equal(g, p)
+
+    feats, pid, cnt = got
+    mask = cnt > 0.0
+    for rows_dtype, out_dtype in bev.SCATTER_INSTANCES:
+        name = bev.SCATTER_INSTANCES[(rows_dtype, out_dtype)]
+        before = _build.LAUNCHES[name]
+        rows = feats.to(rows_dtype)
+        canvas = ops.scatter_to_bev(rows, pid, mask, cfg.grid_h, cfg.grid_w,
+                                    out_dtype)
+        assert _build.LAUNCHES[name] == before + 1
+        assert torch.equal(canvas, bev.scatter_to_bev_plain(
+            rows, pid, mask, cfg, out_dtype))
+
+    boxes = torch.from_numpy(_boxes(np.random.default_rng(4), 2, 200,
+                                    span=11.0)).to(dev)
+    over = ops.overlap_matrix(boxes, 0.2)
+    assert _build.LAUNCHES["nms_overlap"] == 1
+    over_p = nms_overlap.overlap_matrix_plain(boxes, 0.2)
+    assert over_p.any()
+    bad = (over != over_p).nonzero().cpu()
+    if len(bad):
+        bi, j, i = bad.unbind(1)
+        pair = iou.rotated_iou_bev(boxes[bi, j].double().cpu(),
+                                   boxes[bi, i].double().cpu()).diagonal()
+        assert (pair - 0.2).abs().max() < 1e-4
+    valid = torch.ones((2, 200), dtype=torch.bool, device=dev)
+    keep = ops.nms_fixpoint(over, valid)
+    assert torch.equal(keep, nms.nms_fixpoint_loop(over, valid))
+    assert torch.equal(keep.cpu(), nms.nms_fixpoint(over.cpu(), valid.cpu()))
+
+    batch = pillarize_batch(*(torch.from_numpy(a).to(dev)
+                              for a in _cloud(np.random.default_rng(1),
+                                              [3000, 800])), CFG)
+    Bp, Pp, Np, D = batch.features.shape
+    fts = batch.features.reshape(Bp * Pp, Np, D)
+    msk = batch.mask.reshape(Bp * Pp, Np)
+    w6 = torch.randn((D, 64), device=dev) / D ** 0.5
+    b6 = torch.randn((64,), device=dev) * 0.1
+    out = ops.pfn_fused(fts, msk, w6, b6)
+    assert _build.LAUNCHES["pfn"] == 1
+    torch.testing.assert_close(out, pfn.pfn_fused_plain(fts, msk, w6, b6),
+                               atol=1e-5, rtol=1e-5)
+
+
+def test_exported_full_config_launches_kernels(dev, tmp_path):
+    """``PillarsConfig()`` exported on the card at batch 2 and loaded back:
+    its run launches K1-K4 once each and equals the live Detector bit for
+    bit."""
+    from tpu_pillars_torch.export import export_inference, load_inference
+
+    cfg = tconfig.PillarsConfig()
+    sd = _random_state_dict(cfg, 6)
+    export_inference(cfg, sd, str(tmp_path / "art"), batch_sizes=(2,))
+    art = load_inference(str(tmp_path / "art"))
+    assert art.device.type == "cuda"
+    rng = np.random.default_rng(5)
+    clouds = [np.concatenate([rng.uniform(-60, 60, (n, 2)),
+                              rng.uniform(-2.5, 0.5, (n, 1)),
+                              rng.uniform(0, 1, (n, 1))], 1)
+              .astype(np.float32) for n in (60_000, 20_000)]
+    pads = [art.pad_points(c) for c in clouds]
+    pts = np.stack([p for p, _ in pads])
+    ns = np.asarray([n for _, n in pads], np.int32)
+    _build.reset_launches()
+    got = art.predict_packed_batch(pts, ns)
+    torch.cuda.synchronize()
+    serving = ("emit", "fused_pfn", "bev_scatter", "nms_overlap")
+    assert all(_build.LAUNCHES[n] == 1 for n in serving), _build.LAUNCHES
+    want = Detector(cfg, sd).predict_packed_batch(pts, ns)
+    assert torch.equal(got, want)

@@ -10,7 +10,8 @@ at ``tiny_config()``.
   ``points_in_boxes`` on the same ``default_rng`` seeds,
   ``GTDatabase.from_dataset``, ``class_balanced_tokens``, and the
   ``dataset_batches`` stream with every augmentation on for 0 and 4
-  workers.
+  workers, single-sweep and multi-sweep (3 sweeps through the native
+  loader and its numpy path).
 * ``main --data``: 2 steps with GT sampling, object noise and CBGS log
   finite losses and an mAP on the held-out samples; ``--resume`` continues
   the same stream; ``--cbgs`` without ``--data`` warns and is ignored.
@@ -338,14 +339,6 @@ def test_sample_to_arrays(dataset):
     assert np.abs(gb[gv][:, :2]).max() < CFG.x_max
 
 
-def test_sample_to_arrays_refuses_multi_sweep(dataset):
-    import dataclasses
-
-    cfg = dataclasses.replace(CFG, num_sweeps=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        sample_to_arrays(dataset, dataset.sample_tokens()[0], cfg, 8)
-
-
 def test_dataset_batches_epoch(dataset):
     batches = list(dataset_batches(dataset, CFG, batch_size=2,
                                    max_gt_boxes=8, epochs=1, seed=1))
@@ -522,6 +515,129 @@ def test_dataset_batches_match_jax_stream(big_fixture, workers):
     # the augmentations moved something: not the plain stream
     plain = next(iter(dataset_batches(ds, CFG, 2, 16, tokens=toks, seed=5)))
     assert not np.array_equal(plain[0], got[0][0])
+
+
+@pytest.fixture(scope="module")
+def sweep_fixture(tmp_path_factory):
+    """6 samples of 3 sweeps each: the json table dir."""
+    root = tmp_path_factory.mktemp("lyft_sweep_fixture")
+    return build_fixture(str(root), CFG_MS, num_scenes=2,
+                         samples_per_scene=3, sweeps_per_sample=3, seed=6)
+
+
+CFG_MS = tiny_config(num_sweeps=3, max_points=8192)
+
+
+@pytest.mark.parametrize("workers,use_native", [(0, True), (4, True),
+                                                (4, False)])
+def test_multi_sweep_batches_match_jax_stream(sweep_fixture, workers,
+                                              use_native):
+    """The multi-sweep stream (3 sweeps a sample, the dt column) with
+    object noise and the global transforms: the port's equals the JAX
+    package's bit for bit (both on the native loader), with 0 or 4 workers
+    on the port's side; the port's numpy path gives the same stream."""
+    from tpu_pillars.config import tiny_config as jax_tiny_config
+    from tpu_pillars.data import augment as jaug
+    from tpu_pillars.data.lyft import LyftDataset as JaxLyftDataset
+    from tpu_pillars.train import data as jdata
+
+    jcfg = jax_tiny_config(num_sweeps=3, max_points=8192)
+    ds, jds = LyftDataset(sweep_fixture), JaxLyftDataset(sweep_fixture)
+    got = list(dataset_batches(
+        ds, CFG_MS, 2, 16, augment=AugmentConfig(),
+        object_noise=ObjectNoiseConfig(), seed=5, epochs=2,
+        use_native=use_native, num_workers=workers))
+    want = list(jdata.dataset_batches(
+        jds, jcfg, 2, 16, augment=jaug.AugmentConfig(),
+        object_noise=jaug.ObjectNoiseConfig(), seed=5, epochs=2,
+        use_native=True, num_workers=0))
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+    points, num_points = got[0][0], got[0][1]
+    assert points.shape == (2, CFG_MS.max_points, 5)
+    # every sample holds all three sweeps: three distinct dt values
+    for i in range(2):
+        dts = np.unique(points[i, : num_points[i], 4])
+        assert len(dts) == 3 and dts[0] == 0.0
+
+
+def test_sample_to_arrays_multi_sweep(sweep_fixture):
+    """A multi-sweep sample: the padded load's real rows, the native and
+    numpy loaders bit-equal, and the same GT as the single-sweep path."""
+    ds = LyftDataset(sweep_fixture)
+    tok = ds.sample_tokens()[2]
+    pts, gb, gc, gv = sample_to_arrays(ds, tok, CFG_MS, 8, use_native=True)
+    pts_np, gb_np, _, _ = sample_to_arrays(ds, tok, CFG_MS, 8,
+                                           use_native=False)
+    np.testing.assert_array_equal(pts, pts_np)
+    np.testing.assert_array_equal(gb, gb_np)
+    assert pts.shape[1] == CFG_MS.num_input_features == 5
+    assert 0 < len(pts) <= CFG_MS.max_points
+    _, gb1, gc1, gv1 = sample_to_arrays(ds, tok, CFG, 8)
+    np.testing.assert_array_equal(gb, gb1)
+    np.testing.assert_array_equal(gc, gc1)
+    np.testing.assert_array_equal(gv, gv1)
+
+
+def test_multi_sweep_train_steps_match_jax(sweep_fixture):
+    """Two fused-front-end steps at ``tiny_config(num_sweeps=3)`` on one
+    batch of the multi-sweep stream, against ``jax.jit(make_train_step)``
+    on the same batch and weights: the losses at test_torch_train's
+    tolerance, and every parameter's update. The dt column (row 4 of the
+    PFN kernel, which ``fold_decoration`` folds into K2's differentiable
+    twin) moves, by the same amount on both sides."""
+    import jax
+    import jax.numpy as jnp
+
+    from torch_port_util import random_variables
+    from tpu_pillars.config import tiny_config as jax_tiny_config
+    from tpu_pillars.train import (
+        TrainBatch, TrainConfig as JaxTrainConfig,
+        create_train_state as jax_state, make_train_step as jax_step,
+    )
+    from tpu_pillars_torch import weights
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+    from tpu_pillars_torch.train.step import batch_to_device, make_train_step
+
+    jcfg = jax_tiny_config(num_sweeps=3, max_points=8192)
+    arrays = next(iter(dataset_batches(LyftDataset(sweep_fixture), CFG_MS, 2,
+                                       16, seed=5, use_native=True)))
+    variables = random_variables(jcfg, seed=4)
+    jst = jax_state(jcfg, JaxTrainConfig(batch_size=2, max_gt_boxes=16,
+                                         total_steps=10))
+    params = jax.tree.map(jnp.asarray, variables["params"])
+    jst = jst.replace(params=params,
+                      batch_stats=jax.tree.map(jnp.asarray,
+                                               variables["batch_stats"]),
+                      opt_state=jst.tx.init(params))
+    jstep = jax.jit(jax_step(jcfg, fused_frontend=True))
+    jbatch = TrainBatch(*(jnp.asarray(x) for x in arrays))
+    st = create_train_state(
+        CFG_MS, TrainConfig(batch_size=2, max_gt_boxes=16, total_steps=10),
+        device="cpu", state_dict=weights.params_from_flax(variables, CFG_MS))
+    step = make_train_step(CFG_MS)
+    for i in range(2):
+        jst, jl = jstep(jst, jbatch)
+        st, tl = step(st, batch_to_device(arrays, "cpu"))
+        np.testing.assert_allclose(float(tl.total), float(jl.total),
+                                   rtol=2e-3, err_msg=f"step {i}")
+        assert int(tl.num_pos) == int(jl.num_pos) > 0
+    # each leaf's update (AdamW moves every weight by about the step size,
+    # 2e-4 here, whatever its gradient's scale): the worst leaf's
+    # difference within 5% of its largest move (0.012 at this seed; a dt
+    # column cut from the graph gives 1.0 on the PFN kernel)
+    got = weights.flax_from_params(st.model.state_dict(), CFG_MS)["params"]
+    assert jax.tree.structure(got) == jax.tree.structure(jst.params)
+    for a, b, c in zip(jax.tree.leaves(got), jax.tree.leaves(jst.params),
+                       jax.tree.leaves(variables["params"])):
+        moved_t, moved_j = np.asarray(a) - c, np.asarray(b) - c
+        assert np.abs(moved_t - moved_j).max() <= 0.05 * np.abs(moved_j).max()
+    dt_row = (np.asarray(jst.params["pfn"]["linear"]["kernel"])[4]
+              - variables["params"]["pfn"]["linear"]["kernel"][4])
+    assert np.abs(dt_row).min() > 0.0
 
 
 def test_synthetic_batches_augment_match_jax():

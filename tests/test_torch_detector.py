@@ -137,7 +137,9 @@ def _imports(path):
 
 
 def test_port_imports_no_jax():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(ROOT, "scripts", f"torch_{name}.py")
+        for name in ("quickstart", "visualize")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "tpu_pillars_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -159,7 +161,9 @@ def test_port_imports_no_jax():
                    "ops/target_assigner.py", "ops/postprocess.py",
                    "serve.py", "data/stream.py", "reference_cpu/__init__.py",
                    "reference_cpu/pillarizer.py", "reference_cpu/model.py",
-                   "reference_cpu/convert.py", "reference_cpu/pipeline.py"):
+                   "reference_cpu/convert.py", "reference_cpu/pipeline.py",
+                   "data/native_io.py", "export.py", "utils/profiling.py",
+                   "utils/viz.py"):
         assert os.path.join("tpu_pillars_torch", module) in rel, module
     for path in files:
         for mod in _imports(path):

@@ -13,7 +13,11 @@
   and K11, one launch each and no other torch op than their
   ``torch.empty`` allocations (a dispatch mode records every op), return
   their documented outputs there; K7 passes views of other layouts to its
-  kernel as they are, with their strides.
+  kernel as they are, with their strides. The wrappers of K1, K2, K3, K4
+  and K6 (and the NMS fixpoint) are thin calls of their ``tpu_pillars``
+  ops, whose fake (``meta``) implementation launches nothing: for those
+  the launch checks call the op's CUDA implementation, and one more test
+  checks that each such wrapper dispatches its op and nothing else.
 * K3's precondition: the ids that each caller of the BEV scatter passes
   (the fused and the classic serving front end, a training step) satisfy
   ``where(mask, pid, H*W)`` ascending, valid ids unique and in [0, H*W),
@@ -32,8 +36,8 @@ from tpu_pillars_torch import _build
 from tpu_pillars_torch import config as tconfig
 from tpu_pillars_torch import detector as tdet
 from tpu_pillars_torch.ops import (
-    assign, bev, binning, emit, fused_pfn, iou_tiled, nms_overlap, pfn, sort,
-    stream_pfn,
+    assign, bev, binning, emit, fused_pfn, iou_tiled, nms, nms_overlap, pfn,
+    sort, stream_pfn,
 )
 from tpu_pillars_torch.train.loop import synthetic_batches
 from tpu_pillars_torch.train.state import TrainConfig, create_train_state
@@ -116,20 +120,23 @@ B, P, C, HW = 2, 16, 8, CFG.grid_h * CFG.grid_w
 A_C = CFG.feature_h * CFG.feature_w * len(CFG.anchor_yaws)  # K5's anchors
 
 # each kernel's wrapper on meta inputs of the shapes it takes
+# (for the kernels behind a ``tpu_pillars`` op: its CUDA implementation)
 CALLS = {
-    "emit": lambda: emit.emit_table(_m((B, 64), torch.int32), _m((B, 64, 4)),
-                                    4, P, HW),
-    "fused_pfn": lambda: fused_pfn.pfn_from_table(
+    "emit": lambda: emit.emit_table_cuda(_m((B, 64), torch.int32),
+                                         _m((B, 64, 4)), 4, P, HW),
+    "fused_pfn": lambda: fused_pfn.pfn_from_table_cuda(
         _m((B * P, CFG.max_points_per_pillar * 4)), _m((B * 8, P)),
-        _m((4, C)), _m((8, C)), CFG),
-    "bev_scatter": lambda: bev.scatter_to_bev(
-        _m((B, P, C)), _m((B, P), torch.int32), _m((B, P), torch.bool), CFG),
-    "nms_overlap": lambda: nms_overlap.overlap_matrix(_m((B, 40, 7)), 0.2),
+        _m((4, C)), _m((8, C)), *fused_pfn.geometry(CFG)),
+    "bev_scatter": lambda: bev.scatter_to_bev_cuda(
+        _m((B, P, C)), _m((B, P), torch.int32), _m((B, P), torch.bool),
+        CFG.grid_h, CFG.grid_w, torch.float32),
+    "nms_overlap": lambda: nms_overlap.overlap_matrix_cuda(_m((B, 40, 7)),
+                                                           0.2),
     "assign": lambda: assign.windowed_best_iou(
         _m((B, CFG.num_classes, 4, 7)),
         _m((B, CFG.num_classes, 4), torch.bool), CFG),
-    "pfn": lambda: pfn.pfn_fused(_m((P, 4, 9)), _m((P, 4), torch.bool),
-                                 _m((9, C)), _m((C,))),
+    "pfn": lambda: pfn.pfn_fused_cuda(_m((P, 4, 9)), _m((P, 4), torch.bool),
+                                      _m((9, C)), _m((C,))),
     "radix_sort": lambda: sort.bitonic_sort(_m((B, 64), torch.int32),
                                             _m((B, 64, 4))),
     "binning": lambda: binning.rank_and_hist(
@@ -181,8 +188,9 @@ def test_scatter_bf16_instances_launch_under_their_inputs_device(
     point, counted under its own name and no other, returning a bf16
     canvas."""
     before = dict(_build.LAUNCHES)
-    out = bev.scatter_to_bev(_m((B, P, C), rows), _m((B, P), torch.int32),
-                             _m((B, P), torch.bool), CFG, torch.bfloat16)
+    out = bev.scatter_to_bev_cuda(
+        _m((B, P, C), rows), _m((B, P), torch.int32), _m((B, P), torch.bool),
+        CFG.grid_h, CFG.grid_w, torch.bfloat16)
     assert [c[:3] for c in card.calls] == [("bev_scatter", symbol, META)]
     assert card.calls[0][3] == _FakeCard.stream_of(META)
     after = dict(_build.LAUNCHES)
@@ -246,6 +254,39 @@ def test_one_launch_wrappers_run_no_other_torch_op(card, kernel):
         CALLS[kernel]()
     assert set(ops.names) == {"aten.empty.memory_format"}, ops.names
     assert len(card.calls) == 2
+
+
+# the wrappers that are thin calls of a ``tpu_pillars`` op: (wrapper, its
+# meta inputs)
+OP_WRAPPERS = {
+    "emit_table": (emit.emit_table, lambda: (
+        _m((B, 64), torch.int32), _m((B, 64, 4)), 4, P, HW)),
+    "pfn_from_table": (fused_pfn.pfn_from_table, lambda: (
+        _m((B * P, CFG.max_points_per_pillar * 4)), _m((B * 8, P)),
+        _m((4, C)), _m((8, C)), CFG)),
+    "scatter_to_bev": (bev.scatter_to_bev, lambda: (
+        _m((B, P, C)), _m((B, P), torch.int32), _m((B, P), torch.bool),
+        CFG)),
+    "overlap_matrix": (nms_overlap.overlap_matrix, lambda: (
+        _m((B, 40, 7)), 0.2)),
+    "pfn_fused": (pfn.pfn_fused, lambda: (
+        _m((P, 4, 9)), _m((P, 4), torch.bool), _m((9, C)), _m((C,)))),
+    "nms_fixpoint": (nms.nms_fixpoint, lambda: (
+        _m((B, 40, 40), torch.bool), _m((B, 40), torch.bool))),
+}
+
+
+@pytest.mark.parametrize("op", sorted(OP_WRAPPERS))
+def test_op_wrappers_dispatch_their_op_alone(card, op):
+    """Each such wrapper dispatches its ``tpu_pillars`` op and no other
+    torch op (an exported graph records that op); on ``meta`` the op's fake
+    runs, which launches nothing."""
+    wrapper, inputs = OP_WRAPPERS[op]
+    args = inputs()
+    with _Ops() as ops:
+        wrapper(*args)
+    assert ops.names == [f"tpu_pillars.{op}.default"], ops.names
+    assert not card.calls
 
 
 # K7's inputs in layouts other than contiguous (B, n, 7): (boxes1, boxes2)

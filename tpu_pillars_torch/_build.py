@@ -16,6 +16,13 @@ already current, it skips the guard). Every entry point returns the
 value. Kernels allocate nothing: the Python wrappers allocate outputs with
 ``torch``.
 
+Each wrapper that ``torch.export`` must see through (K1, K2, K3, K4, K6,
+and the NMS fixpoint, which has no kernel) calls an op of the
+``tpu_pillars`` namespace made by :func:`kernel_op`: its CUDA
+implementation is the kernel's launch, its CPU implementation the plain
+version, and its fake gives the output shapes. An exported program names
+these ops.
+
 ``LAUNCHES`` counts each kernel's launches. :func:`launch` adds one right
 after a kernel launched, and nowhere else (a sidecar launch adds none) — so
 a run can show that its main path went through the kernels. K3's bf16
@@ -183,3 +190,42 @@ def launch(kernel: str, symbol: str, sig: str, *args,
         raise RuntimeError(f"{symbol}: CUDA error {err} at launch")
     if count:
         LAUNCHES[kernel if count is True else count] += 1
+
+
+_OPS_LIBRARY = None
+
+
+def _fresh(out, inputs):
+    """``out`` (a tensor or a tuple of them) with every output that is a
+    view or one of ``inputs`` copied: an op's outputs may not alias its
+    inputs (the plain versions return views in places; the kernels' outputs
+    are fresh, and their launches skip this, which costs host time)."""
+    def own(t):
+        if t._base is not None or any(t is x for x in inputs):
+            return t.clone()
+        return t
+
+    return tuple(map(own, out)) if isinstance(out, tuple) else own(out)
+
+
+def kernel_op(name: str, cuda_fn, cpu_fn, fake_fn):
+    """Define the op ``tpu_pillars::<name>`` (its schema from ``cuda_fn``'s
+    annotations) and return it: on CUDA tensors it runs
+    ``cuda_fn`` (the kernel's launch; its outputs must be fresh tensors),
+    on CPU tensors ``cpu_fn`` (the plain version, same arguments; outputs
+    that alias an input are copied), under ``torch.export`` and on ``meta``
+    ``fake_fn`` (the outputs' shapes and dtypes). A low-level
+    ``torch.library`` op: its call costs the dispatcher and no Python
+    autograd layer; none of these ops is differentiated through."""
+    import torch
+
+    global _OPS_LIBRARY
+    if _OPS_LIBRARY is None:
+        _OPS_LIBRARY = torch.library.Library("tpu_pillars", "FRAGMENT")
+    _OPS_LIBRARY.define(name + torch.library.infer_schema(
+        cuda_fn, mutates_args=()))
+    _OPS_LIBRARY.impl(name, cuda_fn, "CUDA")
+    _OPS_LIBRARY.impl(name, lambda *a: _fresh(cpu_fn(*a), a), "CPU")
+    torch.library.register_fake(f"tpu_pillars::{name}", fake_fn,
+                                lib=_OPS_LIBRARY)
+    return getattr(torch.ops.tpu_pillars, name).default

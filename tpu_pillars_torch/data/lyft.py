@@ -17,7 +17,9 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from tpu_pillars_torch.geometry.boxes import Box3D
-from tpu_pillars_torch.geometry.quaternion import yaw_from_quat
+from tpu_pillars_torch.geometry.quaternion import (
+    quat_to_rotation_matrix, yaw_from_quat,
+)
 from tpu_pillars_torch.geometry.transforms import (
     Pose, compose, inverse, transform_points,
 )
@@ -176,3 +178,38 @@ class LyftDataset:
                 break
             sd = self.get("sample_data", prev)
         return np.concatenate(clouds, axis=0).astype(np.float32)
+
+    def _sweep_chain(self, sample_token: str, num_sweeps: int):
+        """(paths, 3x4 sweep->keyframe transforms, dt seconds) per sweep."""
+        ref_sd = self.lidar_sample_data(sample_token)
+        ref_pose_inv = inverse(self.lidar_to_global(ref_sd))
+        ref_t = ref_sd["timestamp"]
+        paths, rts, dts = [], [], []
+        sd = ref_sd
+        for _ in range(num_sweeps):
+            pose = compose(ref_pose_inv, self.lidar_to_global(sd))
+            rt = np.hstack([
+                quat_to_rotation_matrix(pose.rotation),
+                np.asarray(pose.translation).reshape(3, 1),
+            ]).astype(np.float32)
+            paths.append(os.path.join(self.data_path, sd["filename"]))
+            rts.append(rt)
+            dts.append((ref_t - sd["timestamp"]) * 1e-6)
+            prev = sd.get("prev", "")
+            if not prev:
+                break
+            sd = self.get("sample_data", prev)
+        return paths, rts, dts
+
+    def load_sweeps_padded(self, sample_token: str, config,
+                           use_native: Optional[bool] = None):
+        """Fused multi-sweep load straight into the static (max_points, F)
+        buffer via the native C++ loader (``data.native_io``; its numpy path
+        when ``use_native`` is False, or None and the library does not
+        build). Crops to the detection range during the read — no
+        intermediate full-cloud materialization."""
+        from tpu_pillars_torch.data import native_io
+
+        paths, rts, dts = self._sweep_chain(sample_token, config.num_sweeps)
+        return native_io.load_sweeps_padded(paths, rts, dts, config,
+                                            use_native=use_native)

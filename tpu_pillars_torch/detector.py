@@ -204,6 +204,57 @@ def int16_wire_scales(config: PillarsConfig) -> np.ndarray:
     return scales
 
 
+def pad_points(points: np.ndarray, config: PillarsConfig,
+               truncation: TruncationStats, host_crop: bool = True,
+               wire_np=np.float32, scales: Optional[np.ndarray] = None,
+               buckets: Optional[tuple] = None):
+    """Pad/crop a cloud to a static (M, F) upload in the wire dtype
+    ``wire_np`` (int16 fixed point when ``scales`` is given). F is pinned
+    by the config; extra columns are dropped, missing ones are an error.
+    host_crop: drop points outside the detection range first. M is
+    config.max_points, or the smallest of ``buckets`` that holds the cloud.
+    Clouds beyond the budget keep their FIRST max_points (in-range) rows;
+    the drop is counted in ``truncation`` and warned."""
+    cfg = config
+    wire_np = np.dtype(wire_np)
+    f_expect = cfg.num_input_features
+    points = np.asarray(points, dtype=np.float32)
+    points = points.reshape(-1, points.shape[-1] if points.size
+                            else f_expect)
+    if points.shape[1] < f_expect:
+        raise ValueError(
+            f"points have {points.shape[1]} feature columns; config "
+            f"needs {f_expect} (x, y, z, intensity"
+            f"{', dt' if cfg.num_sweeps > 1 else ''})")
+    if host_crop and len(points):
+        # a strict SUPERSET of the device validity predicate: the
+        # grid-derived upper bound plus one voxel of float margin
+        x, y, z = points[:, 0], points[:, 1], points[:, 2]
+        xh = cfg.x_min + (cfg.grid_w + 1) * cfg.voxel_x
+        yh = cfg.y_min + (cfg.grid_h + 1) * cfg.voxel_y
+        keep = ((x >= cfg.x_min) & (x < xh)
+                & (y >= cfg.y_min) & (y < yh)
+                & (z >= cfg.z_min) & (z <= cfg.z_max))
+        points = points[keep]
+    n = min(len(points), cfg.max_points)
+    m = cfg.max_points
+    if buckets is not None:
+        m = next(b for b in buckets if b >= n)
+    if scales is not None:
+        # int16 fixed point: per-channel quantize; 32767 is the pad
+        # sentinel (it dequantizes out of the detection range)
+        out = np.full((m, f_expect), 32767, dtype=np.int16)
+        q = np.round(points[:n, :f_expect] / scales)
+        out[:n] = np.clip(q, -32767, 32767).astype(np.int16)
+    else:
+        # pad with a finite out-of-range sentinel (f16's max is ~65504)
+        pad = 1e6 if wire_np.itemsize >= 4 else 3e4
+        out = np.full((m, f_expect), pad, dtype=wire_np)
+        out[:n] = points[:n, :f_expect]
+    truncation.record(len(points), n, label="pad_points")
+    return out, np.int32(n)
+
+
 class Detector:
     """Host-facing wrapper: pads clouds to the static budget, runs the
     two stages, converts to Box3D (optionally into the global frame)."""
@@ -375,48 +426,12 @@ class Detector:
     # --- raw (device tensors) ---
 
     def pad_points(self, points: np.ndarray):
-        """Pad/crop to a static (M, F) upload in the wire dtype. F is pinned
-        by the config; extra columns are dropped, missing ones are an
-        error. Clouds beyond the budget keep their FIRST max_points
-        (in-range) rows; the drop is counted in self.truncation and
-        warned."""
-        cfg = self.config
-        f_expect = cfg.num_input_features
-        points = np.asarray(points, dtype=np.float32)
-        points = points.reshape(-1, points.shape[-1] if points.size
-                                else f_expect)
-        if points.shape[1] < f_expect:
-            raise ValueError(
-                f"points have {points.shape[1]} feature columns; config "
-                f"needs {f_expect} (x, y, z, intensity"
-                f"{', dt' if cfg.num_sweeps > 1 else ''})")
-        if self.host_crop and len(points):
-            # a strict SUPERSET of the device validity predicate: the
-            # grid-derived upper bound plus one voxel of float margin
-            x, y, z = points[:, 0], points[:, 1], points[:, 2]
-            xh = cfg.x_min + (cfg.grid_w + 1) * cfg.voxel_x
-            yh = cfg.y_min + (cfg.grid_h + 1) * cfg.voxel_y
-            keep = ((x >= cfg.x_min) & (x < xh)
-                    & (y >= cfg.y_min) & (y < yh)
-                    & (z >= cfg.z_min) & (z <= cfg.z_max))
-            points = points[keep]
-        n = min(len(points), cfg.max_points)
-        m = cfg.max_points
-        if self.wire_buckets is not None:
-            m = next(b for b in self.wire_buckets if b >= n)
-        if self._wire_scales is not None:
-            # int16 fixed point: per-channel quantize; 32767 is the pad
-            # sentinel (it dequantizes out of the detection range)
-            out = np.full((m, f_expect), 32767, dtype=np.int16)
-            q = np.round(points[:n, :f_expect] / self._wire_scales)
-            out[:n] = np.clip(q, -32767, 32767).astype(np.int16)
-        else:
-            # pad with a finite out-of-range sentinel (f16's max is ~65504)
-            pad = 1e6 if self._wire_np.itemsize >= 4 else 3e4
-            out = np.full((m, f_expect), pad, dtype=self._wire_np)
-            out[:n] = points[:n, :f_expect]
-        self.truncation.record(len(points), n, label="pad_points")
-        return out, np.int32(n)
+        """:func:`pad_points` with this detector's wire (dtype, int16
+        scales, buckets), host crop and ``self.truncation``."""
+        return pad_points(points, self.config, self.truncation,
+                          host_crop=self.host_crop, wire_np=self._wire_np,
+                          scales=self._wire_scales,
+                          buckets=self.wire_buckets)
 
     def predict_raw_batch(self, points_batch, num_points) -> Detections:
         """points_batch (B, M, F) already padded, in the wire dtype;

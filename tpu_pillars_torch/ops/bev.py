@@ -30,6 +30,8 @@ Both of K9's kernels take the tile size from here. On a CPU tensor it runs
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from tpu_pillars_torch import _build
@@ -74,22 +76,44 @@ def scatter_to_bev(pillar_features, pid_per, pillar_mask,
     ``where(pillar_mask, pid_per, H*W)`` ascends along P in every sample,
     and the valid ids are unique and lie in [0, H*W) (the emit table's and
     the pillarizers' order); other orders give a wrong canvas on the card.
-    Not checked here: that would need a sync with the card."""
+    Not checked here: that would need a sync with the card. The op
+    ``tpu_pillars::scatter_to_bev`` (``_build.kernel_op``):
+    :func:`scatter_to_bev_cuda` on a CUDA tensor,
+    :func:`scatter_to_bev_plain` on a CPU tensor."""
     _check(pillar_features, pid_per, pillar_mask, out_dtype,
            SCATTER_INSTANCES)
-    if pillar_features.device.type == "cpu":
-        return scatter_to_bev_plain(pillar_features, pid_per, pillar_mask,
-                                    config, out_dtype)
-    H, W = config.grid_h, config.grid_w
+    return _SCATTER_TO_BEV(pillar_features, pid_per, pillar_mask,
+                           config.grid_h, config.grid_w, out_dtype)
+
+
+def scatter_to_bev_cuda(pillar_features: torch.Tensor, pid_per: torch.Tensor,
+                        pillar_mask: torch.Tensor, grid_h: int, grid_w: int,
+                        out_dtype: torch.dtype) -> torch.Tensor:
+    """K3's launch (the instance of its row and canvas dtypes), the CUDA
+    implementation of ``tpu_pillars::scatter_to_bev``."""
     B, P, C = pillar_features.shape
     feats = pillar_features.contiguous()
     pid = pid_per.contiguous()
     mask = pillar_mask.contiguous()
-    canvas = torch.empty((B, H, W, C), dtype=out_dtype, device=feats.device)
+    canvas = torch.empty((B, grid_h, grid_w, C), dtype=out_dtype,
+                         device=feats.device)
     symbol = SCATTER_INSTANCES[(feats.dtype, out_dtype)]
     _build.launch("bev_scatter", symbol, "ppppiiii", feats, pid, mask,
-                  canvas, B, P, C, H * W, count=symbol)
+                  canvas, B, P, C, grid_h * grid_w, count=symbol)
     return canvas
+
+
+def _scatter_to_bev_cpu(pillar_features, pid_per, pillar_mask, grid_h,
+                        grid_w, out_dtype):
+    return scatter_to_bev_plain(pillar_features, pid_per, pillar_mask,
+                                SimpleNamespace(grid_h=grid_h, grid_w=grid_w),
+                                out_dtype)
+
+
+def _scatter_to_bev_fake(pillar_features, pid_per, pillar_mask, grid_h,
+                         grid_w, out_dtype):
+    B, _, C = pillar_features.shape
+    return pillar_features.new_empty((B, grid_h, grid_w, C), dtype=out_dtype)
 
 
 class _ScatterDiff(torch.autograd.Function):
@@ -147,6 +171,11 @@ def scatter_to_bev_plain(pillar_features, pid_per, pillar_mask,
     canvas = torch.zeros((B * H * W, C), dtype=out_dtype, device=dev)
     canvas[flat[pillar_mask]] = pillar_features[pillar_mask].to(out_dtype)
     return canvas.reshape(B, H, W, C)
+
+
+_SCATTER_TO_BEV = _build.kernel_op(
+    "scatter_to_bev", scatter_to_bev_cuda, _scatter_to_bev_cpu,
+    _scatter_to_bev_fake)
 
 
 def scatter_to_bev_auto(pillar_features, coords, pillar_mask,

@@ -32,6 +32,8 @@ decorated ``PillarBatch`` from its table: :func:`pillarize_batch_emit`.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from tpu_pillars_torch import _build
@@ -59,10 +61,18 @@ def emit_table(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
                n_pts: int, p_budget: int, hw: int):
     """gid_sorted (B, M) int32 ascending per sample (``hw`` marks invalid
     points), pts_sorted (B, M, F) f32 -> (table, meta), see module
-    docstring."""
+    docstring. The op ``tpu_pillars::emit_table`` (``_build.kernel_op``):
+    :func:`emit_table_cuda` on a CUDA tensor, :func:`emit_table_plain` on
+    a CPU tensor."""
     _check(gid_sorted, pts_sorted)
-    if gid_sorted.device.type == "cpu":
-        return emit_table_plain(gid_sorted, pts_sorted, n_pts, p_budget, hw)
+    return _EMIT_TABLE(gid_sorted, pts_sorted, n_pts, p_budget, hw)
+
+
+def emit_table_cuda(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
+                    n_pts: int, p_budget: int, hw: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1's launch, the CUDA implementation of ``tpu_pillars::emit_table``:
+    one launch into ``torch.empty``."""
     B, M, F = pts_sorted.shape
     dev = gid_sorted.device
     table = torch.empty((B * p_budget, n_pts * F), dtype=torch.float32,
@@ -76,6 +86,12 @@ def emit_table(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
                   gid_sorted.contiguous(), pts_sorted.contiguous(), table,
                   meta, scratch, B, M, F, n_pts, p_budget, hw)
     return table, meta
+
+
+def _emit_table_fake(gid_sorted, pts_sorted, n_pts, p_budget, hw):
+    B, _, F = pts_sorted.shape
+    return (pts_sorted.new_empty((B * p_budget, n_pts * F)),
+            pts_sorted.new_empty((B * META_ROWS, p_budget)))
 
 
 def emit_table_plain(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
@@ -125,6 +141,10 @@ def emit_table_plain(gid_sorted: torch.Tensor, pts_sorted: torch.Tensor,
         sums = sums + torch.where(j < cnt, rows[:, j, :3], 0.0)
     meta[:, 2:5] = sums.reshape(B, p_budget, 3).transpose(1, 2)
     return table, meta.reshape(B * META_ROWS, p_budget)
+
+
+_EMIT_TABLE = _build.kernel_op("emit_table", emit_table_cuda,
+                               emit_table_plain, _emit_table_fake)
 
 
 def emit_runs_plain(gid_sorted: torch.Tensor, p_budget: int, hw: int):

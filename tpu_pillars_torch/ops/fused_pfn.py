@@ -29,6 +29,9 @@ notes are in the ``.cu`` header.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+from typing import Tuple
+
 import torch
 
 from tpu_pillars_torch import _build
@@ -74,16 +77,34 @@ def _split_meta(meta, p_rows):
 def pfn_from_table(table, meta, w_eff, w_dec, config: PillarsConfig):
     """K2. table (B*P, N*F), meta (B*8, P) (``ops.emit.emit_table``),
     w_eff (F, C), w_dec (8, C) (:func:`fold_decoration`) ->
-    (feats (B, P, C) f32, pid_per (B, P) int32, cnt (B, P) f32)."""
-    if table.device.type == "cpu":
-        return pfn_from_table_plain(table, meta, w_eff, w_dec, config)
+    (feats (B, P, C) f32, pid_per (B, P) int32, cnt (B, P) f32). The op
+    ``tpu_pillars::pfn_from_table`` (``_build.kernel_op``) on the config's
+    :func:`geometry`: :func:`pfn_from_table_cuda` on a CUDA tensor,
+    :func:`pfn_from_table_plain` on a CPU tensor."""
+    return _PFN_FROM_TABLE(table, meta, w_eff, w_dec, *geometry(config))
+
+
+def geometry(config: PillarsConfig) -> tuple:
+    """The config's fields that K2 reads, in its op's argument order: N,
+    the grid width and the grid's origin and pitch."""
+    return (config.max_points_per_pillar, config.grid_w, config.x_min,
+            config.y_min, config.voxel_x, config.voxel_y)
+
+
+def pfn_from_table_cuda(table: torch.Tensor, meta: torch.Tensor,
+                        w_eff: torch.Tensor, w_dec: torch.Tensor, n_pts: int,
+                        grid_w: int, x_min: float, y_min: float,
+                        voxel_x: float, voxel_y: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's launch, the CUDA implementation of
+    ``tpu_pillars::pfn_from_table``."""
     dev = table.device
     for name, t in (("table", table), ("meta", meta), ("w_eff", w_eff),
                     ("w_dec", w_dec)):
         if t.dtype != torch.float32 or t.device != dev:
             raise TypeError(f"pfn_from_table: {name} must be float32 on "
                             f"{dev}, got {t.dtype} on {t.device}")
-    N = config.max_points_per_pillar
+    N = n_pts
     F, C = w_eff.shape
     p_rows = meta.shape[1]
     B = meta.shape[0] // META_ROWS
@@ -100,9 +121,23 @@ def pfn_from_table(table, meta, w_eff, w_dec, config: PillarsConfig):
     cnt = torch.empty((B, p_rows), dtype=torch.float32, device=dev)
     _build.launch("fused_pfn", "fused_pfn", "pppppppiiiiiiffff", table, meta,
                   w_eff, w_dec, out, pid, cnt, rows, p_rows, N, F, C,
-                  config.grid_w, config.x_min, config.y_min, config.voxel_x,
-                  config.voxel_y)
+                  grid_w, x_min, y_min, voxel_x, voxel_y)
     return out, pid, cnt
+
+
+def _pfn_from_table_cpu(table, meta, w_eff, w_dec, n_pts, grid_w, x_min,
+                        y_min, voxel_x, voxel_y):
+    return pfn_from_table_plain(table, meta, w_eff, w_dec, SimpleNamespace(
+        max_points_per_pillar=n_pts, grid_w=grid_w, x_min=x_min, y_min=y_min,
+        voxel_x=voxel_x, voxel_y=voxel_y))
+
+
+def _pfn_from_table_fake(table, meta, w_eff, *_):
+    B, P = meta.shape[0] // META_ROWS, meta.shape[1]
+    C = w_eff.shape[1]
+    return (table.new_empty((B, P, C)),
+            table.new_empty((B, P), dtype=torch.int32),
+            table.new_empty((B, P)))
 
 
 def pfn_from_table_plain(table, meta, w_eff, w_dec, config: PillarsConfig):
@@ -138,6 +173,11 @@ def pfn_from_table_plain(table, meta, w_eff, w_dec, config: PillarsConfig):
          - cx * w_dec[3] - cy * w_dec[4])
     out = torch.where(cnt > 0.0, torch.clamp(smax + t, min=0.0), 0.0)
     return out.reshape(B, p_rows, C), pid_b, cnt_b
+
+
+_PFN_FROM_TABLE = _build.kernel_op(
+    "pfn_from_table", pfn_from_table_cuda, _pfn_from_table_cpu,
+    _pfn_from_table_fake)
 
 
 def _cell_centres(pid, config: PillarsConfig):

@@ -24,12 +24,23 @@ from __future__ import annotations
 
 import torch
 
+from tpu_pillars_torch import _build
 from tpu_pillars_torch.ops.iou import rotated_iou_bev_colchunked
 
 
 def nms_fixpoint(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """over (B, K, K) bool, over[b, j, i]: higher-ranked j suppresses i;
-    valid (B, K) bool -> keep (B, K) bool."""
+    valid (B, K) bool -> keep (B, K) bool. The op
+    ``tpu_pillars::nms_fixpoint`` (``_build.kernel_op``), whose
+    implementation on either device is :func:`nms_fixpoint_loop`:
+    ``torch.export`` refuses the loop's host-side test, and records the
+    op."""
+    return _NMS_FIXPOINT(over, valid)
+
+
+def nms_fixpoint_loop(over: torch.Tensor, valid: torch.Tensor
+                      ) -> torch.Tensor:
+    """The sweep until the keep mask stops changing."""
     k = valid.shape[-1]
     over_f = over.to(torch.float32)
     keep = valid
@@ -41,7 +52,13 @@ def nms_fixpoint(over: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         if torch.equal(new_keep, keep):
             break
         keep = new_keep
-    return keep
+    # an op's output may not be its input (nothing was suppressed)
+    return keep.clone() if keep is valid else keep
+
+
+_NMS_FIXPOINT = _build.kernel_op("nms_fixpoint", nms_fixpoint_loop,
+                                 nms_fixpoint_loop,
+                                 lambda over, valid: torch.empty_like(valid))
 
 
 def rotated_nms(boxes: torch.Tensor, scores: torch.Tensor,

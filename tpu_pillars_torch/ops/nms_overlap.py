@@ -44,18 +44,31 @@ def payloads(boxes):
 
 
 def overlap_matrix(boxes, iou_threshold: float):
-    """(B, K, 7) score-sorted f32 boxes -> (B, K, K) bool."""
+    """(B, K, 7) score-sorted f32 boxes -> (B, K, K) bool. The op
+    ``tpu_pillars::overlap_matrix`` (``_build.kernel_op``):
+    :func:`overlap_matrix_cuda` on a CUDA tensor,
+    :func:`overlap_matrix_plain` on a CPU tensor."""
     if boxes.dim() != 3 or boxes.shape[-1] != 7 \
             or boxes.dtype != torch.float32:
         raise ValueError(f"overlap_matrix wants float32 boxes (B, K, 7), got "
                          f"{boxes.dtype} {tuple(boxes.shape)}")
-    if boxes.device.type == "cpu":
-        return overlap_matrix_plain(boxes, iou_threshold)
+    return _OVERLAP_MATRIX(boxes, float(iou_threshold))
+
+
+def overlap_matrix_cuda(boxes: torch.Tensor,
+                        iou_threshold: float) -> torch.Tensor:
+    """K4's launch, the CUDA implementation of
+    ``tpu_pillars::overlap_matrix``."""
     B, K, _ = boxes.shape
     out = torch.empty((B, K, K), dtype=torch.bool, device=boxes.device)
     _build.launch("nms_overlap", "nms_overlap", "ppiif", boxes.contiguous(),
-                  out, B, K, float(iou_threshold))
+                  out, B, K, iou_threshold)
     return out
+
+
+def _overlap_matrix_fake(boxes, iou_threshold):
+    B, K, _ = boxes.shape
+    return boxes.new_empty((B, K, K), dtype=torch.bool)
 
 
 def overlap_matrix_plain(boxes, iou_threshold: float):
@@ -93,6 +106,11 @@ def overlap_matrix_plain(boxes, iou_threshold: float):
     iou = torch.clamp(inter / union, 0.0, 1.0)
     idx = torch.arange(K, device=boxes.device)
     return (iou > iou_threshold) & (idx[:, None] < idx[None, :])
+
+
+_OVERLAP_MATRIX = _build.kernel_op(
+    "overlap_matrix", overlap_matrix_cuda, overlap_matrix_plain,
+    _overlap_matrix_fake)
 
 
 def rotated_nms_overlap(boxes, valid, iou_threshold: float, class_ids=None,

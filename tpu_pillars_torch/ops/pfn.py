@@ -4,8 +4,8 @@ masked max over the points of each pillar.
 Port of ``tpu_pillars/ops/pfn_pallas.py`` (``pfn_fused``), the classic
 front end's PillarFeatureNet at inference. Fold the BatchNorm with
 ``ops.fused_pfn.fold_bn``. On a CUDA tensor :func:`pfn_fused` makes one
-launch of ``csrc/pfn.cu`` into ``torch.empty`` and runs no other torch op;
-on a CPU tensor it runs :func:`pfn_fused_plain`. Both sum the D products in
+launch of ``csrc/pfn.cu`` into ``torch.empty`` (:func:`pfn_fused_cuda`) and
+runs no other torch op; on a CPU tensor it runs :func:`pfn_fused_plain`. Both sum the D products in
 order f = 0, 1, ..., then add the bias, and the kernel is built without
 fused multiply-adds, so the two round the same f32 operations.
 
@@ -48,10 +48,16 @@ def _check(features, mask, weight, bias):
 def pfn_fused(features, mask, weight, bias):
     """features (P, N, D) f32, mask (P, N) bool, folded weight (D, C) and
     bias (C,) -> pillar features (P, C) f32; a pillar with no valid point
-    gives 0."""
+    gives 0. The op ``tpu_pillars::pfn_fused`` (``_build.kernel_op``):
+    :func:`pfn_fused_cuda` on a CUDA tensor, :func:`pfn_fused_plain` on a
+    CPU tensor."""
     _check(features, mask, weight, bias)
-    if features.device.type == "cpu":
-        return pfn_fused_plain(features, mask, weight, bias)
+    return _PFN_FUSED(features, mask, weight, bias)
+
+
+def pfn_fused_cuda(features: torch.Tensor, mask: torch.Tensor,
+                   weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """K6's launch, the CUDA implementation of ``tpu_pillars::pfn_fused``."""
     P, N, D = features.shape
     C = weight.shape[1]
     feats = features.contiguous()
@@ -61,6 +67,10 @@ def pfn_fused(features, mask, weight, bias):
     _build.launch("pfn", "pfn_fused", "pppppiiii", feats, m, w, b, out, P, N,
                   D, C)
     return out
+
+
+def _pfn_fused_fake(features, mask, weight, bias):
+    return features.new_empty((features.shape[0], weight.shape[1]))
 
 
 def pfn_fused_plain(features, mask, weight, bias):
@@ -76,3 +86,7 @@ def pfn_fused_plain(features, mask, weight, bias):
     u = torch.where(mask[..., None], u, -1e9)
     pooled = u.amax(dim=1)
     return torch.where(mask.any(dim=1)[:, None], pooled, 0.0)
+
+
+_PFN_FUSED = _build.kernel_op("pfn_fused", pfn_fused_cuda, pfn_fused_plain,
+                              _pfn_fused_fake)

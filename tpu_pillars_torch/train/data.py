@@ -8,8 +8,10 @@ device with ``train.step.batch_to_device`` (or ``train.prefetch``), as
 ``train.loop.synthetic_batches`` gives them; the same seed gives the JAX
 package's stream bit for bit.
 
-Multi-sweep configs need ``LyftDataset.load_sweeps_padded`` (the native
-sweep loader, ROADMAP Queue 1 item 9), which the port does not have yet.
+Multi-sweep configs (``num_sweeps > 1``, e.g. ``config.multisweep_config``)
+load each sample with ``LyftDataset.load_sweeps_padded``: the sweeps moved
+into the keyframe frame, cropped, with the dt column, by the native C++
+loader (``data.native_io``) or its bit-equal numpy path (``use_native``).
 """
 
 from __future__ import annotations
@@ -27,16 +29,18 @@ from tpu_pillars_torch.data.lyft import LyftDataset
 
 
 def sample_to_arrays(dataset: LyftDataset, token: str, config: PillarsConfig,
-                     max_gt_boxes: int):
+                     max_gt_boxes: int, use_native: Optional[bool] = None):
     """One sample -> (points (n, F) real rows only, gt (G, 7), cls (G,),
-    valid (G,)). Unknown category names are dropped."""
+    valid (G,)). Unknown category names are dropped. ``use_native`` picks
+    the multi-sweep loader (``data.native_io``: None native when it builds,
+    True native or raise, False numpy)."""
     if config.num_sweeps > 1:
-        raise NotImplementedError(
-            "multi-sweep training data needs LyftDataset.load_sweeps_padded "
-            "(the native sweep loader, ROADMAP Queue 1 item 9), which "
-            "tpu_pillars_torch does not have yet")
-    sd = dataset.lidar_sample_data(token)
-    points = dataset.load_point_cloud(sd)[:, : config.num_raw_features]
+        padded, n = dataset.load_sweeps_padded(token, config,
+                                               use_native=use_native)
+        points = padded[: int(n)]
+    else:
+        sd = dataset.lidar_sample_data(token)
+        points = dataset.load_point_cloud(sd)[:, : config.num_raw_features]
 
     name_to_id = {c.name: i for i, c in enumerate(config.classes)}
     boxes: List[np.ndarray] = []
@@ -108,6 +112,7 @@ def dataset_batches(dataset: LyftDataset, config: PillarsConfig,
                     object_noise: Optional[ObjectNoiseConfig] = None,
                     gt_sampler=None, seed: int = 0,
                     epochs: Optional[int] = None,
+                    use_native: Optional[bool] = None,
                     num_workers: int = 0) -> Iterable[tuple]:
     """Shuffled epoch iterator of numpy batches (points, num_points,
     gt_boxes, gt_classes, gt_valid); drops the ragged tail batch.
@@ -117,8 +122,11 @@ def dataset_batches(dataset: LyftDataset, config: PillarsConfig,
     BEFORE the global transforms, the SECOND-lineage order: sampling ->
     per-object noise (``object_noise``) -> global transforms (``augment``).
 
+    use_native: the multi-sweep loader, as :func:`sample_to_arrays`.
+
     num_workers > 0 builds the batch's samples on a thread pool (loads and
-    augmentation are numpy and file reads, which release the GIL). Each
+    augmentation are numpy and file reads, which release the GIL; the
+    native loader releases it for its whole pass). Each
     sample draws from its own RNG spawned in a fixed order from the stream
     RNG, so every worker count yields the bit-identical stream: resume
     replay does not depend on the worker setting."""
@@ -133,7 +141,7 @@ def dataset_batches(dataset: LyftDataset, config: PillarsConfig,
 
     def build_sample(j: int, srng: np.random.Generator):
         pts, b, c, v = sample_to_arrays(dataset, tokens[j], config,
-                                        max_gt_boxes)
+                                        max_gt_boxes, use_native=use_native)
         if gt_sampler is not None:
             pts, b, c, v = gt_sampler.inject_padded(srng, pts, b, c, v)
         if object_noise is not None:
