@@ -165,12 +165,27 @@ line:
      memory, split); K1 and K3 (its bf16 -> bf16 instance in bf16, its f32
      one not) must launch, K2 not, K5 with K5 only.
 
+  6. Data parallel on one card (``parallel/``): two ranks on ``cuda:0``
+     over gloo (``parallel.launch``; NCCL refuses two ranks on one
+     device), each its own process. Three fused f32 data-parallel steps of
+     global batch 8 (4 a rank, sync-BN, averaged gradients) from the seeded
+     model, and one classic step, held against the one-process step on the
+     same batches (loss rtol 2e-3, num_pos equal); the spatial front end
+     over the ranks' row bands on a 20,000-point lidar sweep, its canvas
+     bit-identical to the one-device ``Detector``'s and its packed boxes
+     equal, and on a 50,000-point sweep (over one device's pillar budget)
+     bit-identical to one device with twice the budget; the data-parallel
+     packed detector on the 8 sweeps within the golden tolerances of the
+     ``Detector``'s batch. K1, K3 and K5 launch in each rank's training,
+     K1-K4 in each rank's spatial and DP detection. Prints each rank's
+     step ms, split (with the gradient all-reduce) and launches.
+
 The line before the last is a JSON object ``{"kernels": [...]}``, each
 kernel with its launches on the path that runs it (serving: K1-K4, classic
 serving: K6, drop-ins: K8-K10, K11 and K7, training: K5; K3's f32 -> bf16
 instance: bf16 serving, its bf16 -> bf16 instance: bf16 training, each its
-own entry); the last line is
-``{"ok": true, "device": {...}}``.
+own entry) and, under ``dp_launches``, each rank's launches in phase 6;
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -612,6 +627,9 @@ def main() -> None:
           f"{ {k: classic[k] for k in ('emit', 'bev_scatter', 'assign')} }")
     print(f"launches on the serving surface (3g): {json.dumps(surface)}")
 
+    # ---- phase 6: data parallel on one card (two ranks over gloo)
+    dp_launches = phase_6(cfg, clouds, dev)
+
     replaces = {"emit": "tpu_pillars/ops/emit_pallas.py:113",
                 "fused_pfn": "tpu_pillars/ops/fused_pfn.py:102",
                 "bev_scatter": "tpu_pillars/ops/bev_pallas.py:330",
@@ -636,7 +654,8 @@ def main() -> None:
         print(f"{name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
               f"ms, library {lib}, bound {b_ms:.4f} ms ({b_by}), "
               f"{launches[name]} launches on the main path, "
-              f"{train_launches.get(name, 0)} in the remat-all training run")
+              f"{train_launches.get(name, 0)} in the remat-all training run, "
+              f"{[c[name] for c in dp_launches]} by the ranks of phase 6")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tpu_pillars_torch/csrc/"
@@ -644,7 +663,8 @@ def main() -> None:
             "replaces": replaces[name], "launches": launches[name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "dp_launches": [c[name] for c in dp_launches]})
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2891,6 +2911,231 @@ def evaluation(cfg, golden):
           f"(1e-5); mAP {m_ds:.6f}")
 
 
+DP_RANKS = ("cuda:0", "cuda:0")   # two ranks share the one card: gloo
+DP_STEPS = 3
+DP_GATE = 2e-3                      # the golden training gate
+
+
+def dp_rank(batches, clouds, sweeps):
+    """Phase 6, in each rank of ``parallel.launch``: (a) data-parallel
+    training from the seeded model, ``DP_STEPS`` fused f32 steps of the
+    global batches and one classic step; (b) the spatial front end and
+    detector over the ranks' row bands on ``sweeps["fits"]`` and the
+    spatial front end on ``sweeps["wide"]``; (c) the data-parallel packed
+    detector on the 8 ``clouds``; in rank 0 the one-device canvases and
+    batch beside them. Returns, from rank 0, every rank's losses, step
+    times, splits and launches (gathered), and rank 0's outputs."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.config import PillarsConfig
+    from tpu_pillars_torch.detector import Detector
+    from tpu_pillars_torch.parallel import (
+        make_dp_packed_detector, make_dp_train_step, make_mesh,
+        make_spatial_detector_fn, make_spatial_frontend, split_points_by_slab,
+    )
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+
+    cfg = PillarsConfig()
+    mesh = make_mesh()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    mine = {}
+    for name, kw, steps in (("fused", {}, DP_STEPS),
+                            ("classic", dict(fused_frontend=False), 1)):
+        state = create_train_state(cfg, TrainConfig(batch_size=BATCH),
+                                   seed=SEED, device=mesh.device)
+        step = make_dp_train_step(cfg, mesh, **kw)
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        losses, ms = [], []
+        for b in batches[:steps]:
+            (state, loss), t = timed(lambda: step(state, b))
+            losses.append([float(x) for x in loss])
+            ms.append(t)
+        launches = dict(_build.LAUNCHES)
+        split = {}
+        step(state, batches[0], split=split)
+        mine[name] = dict(losses=losses, ms=ms, launches=launches,
+                          split=split,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del state, step
+        torch.cuda.empty_cache()
+
+    det = Detector.from_checkpoint(cfg, CKPT, device=mesh.device)
+    bands, counts, info = split_points_by_slab(sweeps["fits"], cfg,
+                                               mesh.size)
+    wide = split_points_by_slab(sweeps["wide"], cfg, mesh.size)
+    frontend = make_spatial_frontend(cfg, mesh)
+    detect = make_spatial_detector_fn(cfg, mesh)
+    frontend(det.model, bands, counts)          # warm-up
+    _build.reset_launches()
+    canvas, t_canvas = timed(lambda: frontend(det.model, bands, counts))
+    packed, t_detect = timed(lambda: detect(det.model, bands, counts))
+    mine["spatial"] = dict(launches=dict(_build.LAUNCHES),
+                           ms=[t_canvas, t_detect])
+    wide_canvas = frontend(det.model, wide[0], wide[1])
+
+    padded = [det.pad_points(c) for c in clouds]
+    points = np.stack([p for p, _ in padded])
+    num = np.asarray([n for _, n in padded])
+    dp_detect = make_dp_packed_detector(cfg, mesh)
+    dp_detect(det.model, points, num)           # warm-up
+    _build.reset_launches()
+    dp_packed, t_dp = timed(lambda: dp_detect(det.model, points, num))
+    mine["eval"] = dict(launches=dict(_build.LAUNCHES), ms=[t_dp])
+
+    ranks = [None] * mesh.size
+    dist.all_gather_object(ranks, mine)
+    if mesh.rank != 0:
+        return None
+    def one_canvas(d, cloud):
+        pad, n = d.pad_points(cloud)
+        return d.canvas(torch.from_numpy(pad[None]).to(mesh.device),
+                        torch.tensor([int(n)], device=mesh.device))[0]
+
+    def occupied(c):
+        return int(c.ne(0).any(-1).sum())
+
+    # one device with room for every band's budget, and at its own
+    roomy = Detector(replace(cfg, max_pillars=mesh.size * cfg.max_pillars),
+                     det.model.state_dict(), device=mesh.device)
+    one_packed = det.predict_packed(sweeps["fits"])
+    one_batch, t_one = timed(lambda: det.predict_packed_batch(points, num))
+    return dict(
+        ranks=ranks, backend=dist.get_backend(), info=info,
+        canvas_equal=bool(torch.equal(canvas,
+                                      one_canvas(det, sweeps["fits"]))),
+        occupied=occupied(canvas),
+        packed_equal=bool(torch.equal(packed, one_packed)),
+        boxes=int(packed[:, 9].sum()), wide_info=wide[2],
+        wide_equal=bool(torch.equal(wide_canvas,
+                                    one_canvas(roomy, sweeps["wide"]))),
+        wide_occupied=[occupied(wide_canvas),
+                       occupied(one_canvas(det, sweeps["wide"]))],
+        dp_packed=dp_packed.cpu().numpy(),
+        one_batch=one_batch.cpu().numpy(), one_batch_ms=t_one)
+
+
+def phase_6(cfg, clouds, dev):
+    """6. Data parallel on one card: two ranks on ``cuda:0`` over gloo
+    (``parallel.launch``; NCCL refuses two ranks on one device) at the
+    full config. Training: ``DP_STEPS`` fused f32 data-parallel steps of
+    global batch 8 (4 a rank) from the seeded model, and one classic step,
+    held against the one-process step on the same batches in this process
+    at the golden training gate (loss rtol 2e-3, num_pos equal). The
+    spatial front end on lidar sweep 0: its canvas bit-identical to the
+    one-device ``Detector``'s and its packed boxes equal. The data-parallel
+    packed detector on the 8 sweeps against the ``Detector``'s batch at the
+    golden tolerances. K1, K3 and K5 must launch in every rank's training,
+    K1-K4 in every rank's spatial and DP detection. Prints step ms, the gradient all-reduce ms and launches for
+    each rank. Returns each rank's launches over the phase."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch.detector import packed_to_boxes
+    from tpu_pillars_torch.parallel import launch
+    from tpu_pillars_torch.train.loop import synthetic_batches
+    from tpu_pillars_torch.train.state import TrainConfig, create_train_state
+    from tpu_pillars_torch.train.step import batch_to_device, make_train_step
+
+    stream = synthetic_batches(cfg, TrainConfig(batch_size=BATCH),
+                               seed=SEED + 2)
+    batches = [next(stream) for _ in range(DP_STEPS)]
+    # lidar sweeps of 20,000 points (~10,200 pillars: one device holds
+    # them) and 50,000 (~17,900: over one device's 12,000, under two bands')
+    rng = np.random.default_rng(SEED + 6)
+    sweeps = {k: lidar_batch(rng, cfg, 1, n)[0]
+              for k, n in (("fits", 20_000), ("wide", 50_000))}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = launch(dp_rank, DP_RANKS, args=(batches, clouds, sweeps),
+                 timeout=600)
+    wall = time.perf_counter() - t0
+    print(f"phase 6: {len(DP_RANKS)} ranks on {DP_RANKS[0]} over "
+          f"{got['backend']}, launch to result {wall:.1f} s")
+
+    for name, steps, kw in (("fused", DP_STEPS, {}),
+                            ("classic", 1, dict(fused_frontend=False))):
+        state = create_train_state(cfg, TrainConfig(batch_size=BATCH),
+                                   seed=SEED, device=dev)
+        step = make_train_step(cfg, **kw)
+        want = []
+        for b in batches[:steps]:
+            state, loss = step(state, batch_to_device(b, dev))
+            want.append([float(x) for x in loss])
+        del state, step
+        torch.cuda.empty_cache()
+        for r, rank in enumerate(got["ranks"]):
+            have = rank[name]["losses"]
+            for i, (g, w) in enumerate(zip(have, want)):
+                if not (np.isfinite(g).all() and g[4] == w[4]
+                        and abs(g[0] - w[0]) <= DP_GATE * abs(w[0])):
+                    fail(f"DP {name} step {i} on rank {r}: losses {g} "
+                         f"against the one-process step's {w}")
+            for k in ("emit", "bev_scatter", "assign"):
+                if rank[name]["launches"][k] == 0:
+                    fail(f"kernel {k} did not launch in rank {r}'s DP "
+                         f"{name} training")
+            print(f"DP {name} training, rank {r}: step ms "
+                  f"{[round(t, 2) for t in rank[name]['ms']]}, split "
+                  f"{json.dumps(rank[name]['split'])}, peak "
+                  f"{rank[name]['peak_gib']:.2f} GiB, launches "
+                  f"{rank[name]['launches']}")
+        print(f"DP {name} training: losses {got['ranks'][0][name]['losses']}"
+              f" match the one-process steps' {want} (rtol {DP_GATE}, "
+              f"num_pos equal)")
+
+    if got["info"]["dropped_capacity"] or not got["canvas_equal"]:
+        fail(f"spatial canvas differs from one device's ({got['info']})")
+    if not got["packed_equal"] or got["boxes"] == 0:
+        fail(f"spatial boxes ({got['boxes']}) differ from one device's")
+    print(f"spatial front end, 20,000-point sweep: canvas bit-identical to "
+          f"one device's ({got['occupied']} occupied cells), {got['boxes']} "
+          f"boxes equal; split {got['info']}; canvas / detector ms per rank "
+          f"{[[round(t, 2) for t in r['spatial']['ms']] for r in got['ranks']]}")
+    spread, one = got["wide_occupied"]
+    if (got["wide_info"]["dropped_capacity"] or not got["wide_equal"]
+            or spread <= one):
+        fail(f"spatial front end on the 50,000-point sweep: bands "
+             f"{got['wide_info']}, equal to one device with room: "
+             f"{got['wide_equal']}, {spread} cells against {one}")
+    print(f"spatial front end, 50,000-point sweep: the bands keep {spread} "
+          f"occupied cells, one device at its budget {one}; bit-identical to "
+          f"one device with max_pillars x {len(DP_RANKS)}")
+    n_boxes = 0
+    for s in range(BATCH):
+        g = packed_to_boxes(got["dp_packed"][s], cfg)
+        w = packed_to_boxes(got["one_batch"][s], cfg)
+        check_boxes(g, w, f"DP sweep {s}", ref="the Detector's batch")
+        n_boxes += len(g)
+    print(f"DP packed detector: {n_boxes} boxes on the 8 sweeps within the "
+          f"golden tolerances of the Detector's batch; ms per rank "
+          f"{[round(r['eval']['ms'][0], 2) for r in got['ranks']]}, one "
+          f"device's batch {got['one_batch_ms']:.2f} ms")
+    totals = []
+    for r, rank in enumerate(got["ranks"]):
+        for part in ("spatial", "eval"):
+            for k in ("emit", "fused_pfn", "bev_scatter", "nms_overlap"):
+                if rank[part]["launches"][k] == 0:
+                    fail(f"kernel {k} did not launch in rank {r}'s {part}")
+        totals.append({k: sum(rank[p]["launches"][k] for p in
+                              ("fused", "classic", "spatial", "eval"))
+                       for k in rank["fused"]["launches"]})
+        print(f"launches in phase 6, rank {r}: {totals[-1]}")
+    return totals
+
+
 def iou64_pairs(a, b):
     """Float64 rotated BEV IoU of box pairs a[n], b[n] by the port's polygon
     clip (``reference_cpu.postprocess``): the referee where two f32 IoUs
@@ -2903,14 +3148,16 @@ def iou64_pairs(a, b):
                      for x, y in zip(a, b)])
 
 
-def check_boxes(got, want, scene):
+def check_boxes(got, want, scene, ref="JAX"):
     """The tolerance of the JAX package's trained-weights parity test:
     same count and labels, score 1e-3, centre and size 1e-2 m, yaw 1e-2.
-    Returns the largest score, centre and yaw deviations."""
+    ``ref`` names what ``want`` comes from. Returns the largest score,
+    centre and yaw deviations."""
     import numpy as np
 
     if len(got) != len(want):
-        fail(f"golden scene {scene}: {len(got)} boxes, JAX has {len(want)}")
+        fail(f"golden scene {scene}: {len(got)} boxes, {ref} has "
+             f"{len(want)}")
     worst = np.zeros(3)
     for k, (g, w) in enumerate(zip(got, want)):
         dyaw = abs((g.yaw - w.yaw + math.pi) % (2 * math.pi) - math.pi)
@@ -2918,7 +3165,7 @@ def check_boxes(got, want, scene):
                 or not np.allclose(g.center, w.center, rtol=0, atol=1e-2)
                 or not np.allclose(g.wlh, w.wlh, rtol=0, atol=1e-2)
                 or dyaw > 1e-2):
-            fail(f"golden scene {scene} box {k}: {g} vs JAX {w}")
+            fail(f"golden scene {scene} box {k}: {g} vs {ref} {w}")
         dev = (abs(g.score - w.score),
                float(np.abs(np.asarray(g.center) - w.center).max()), dyaw)
         worst = np.maximum(worst, dev)

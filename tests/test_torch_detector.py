@@ -163,7 +163,9 @@ def test_port_imports_no_jax():
                    "reference_cpu/pillarizer.py", "reference_cpu/model.py",
                    "reference_cpu/convert.py", "reference_cpu/pipeline.py",
                    "data/native_io.py", "export.py", "utils/profiling.py",
-                   "utils/viz.py"):
+                   "utils/viz.py", "parallel/__init__.py",
+                   "parallel/mesh.py", "parallel/train_dp.py",
+                   "parallel/eval_dp.py", "parallel/spatial.py"):
         assert os.path.join("tpu_pillars_torch", module) in rel, module
     for path in files:
         for mod in _imports(path):

@@ -14,8 +14,12 @@
   handler; ``fit(stop=)`` checkpoints cleanly; ``NaNGuard`` saves the last
   finite state, not the poisoned one; ``check_heartbeat``'s three states;
   ``main`` preempted by SIGTERM exits, stops its prefetch thread, and
-  ``--resume`` finishes on the unbroken run's weights; ``main`` refuses
-  ``--dp`` (``--bf16`` trains: tests/test_torch_bf16.py).
+  ``--resume`` finishes on the unbroken run's weights; ``main --dp 2``
+  trains on two gloo ranks with the one-process loss, rank 0 writes, and
+  ``--resume`` continues it; a SIGTERM to its launcher stops both ranks at
+  one step, checkpointed, from which ``--resume`` finishes on the unbroken
+  run's weights; an eval hook longer than the collective timeout does not
+  end the run (``--bf16`` trains: tests/test_torch_bf16.py).
 * The TensorBoard writer writes the JAX writer's bytes for the same events
   (wall time pinned), its CRC-32C holds the published check values, and
   the JSONL logger writes the JAX logger's lines.
@@ -304,13 +308,118 @@ def test_main_preempted_then_resumed(tmp_path, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("flags", [["--dp", "2"]])
-def test_main_refuses_unported_flags(flags, tmp_path):
-    """Data parallelism is not ported: ``main`` refuses it before it builds
-    anything."""
-    with pytest.raises(SystemExit):
-        loop.main(["--device", "cpu", "--out", str(tmp_path)] + flags)
-    assert not os.listdir(tmp_path)
+def test_main_data_parallel_two_ranks(tmp_path):
+    """``main --dp 2 --device cpu``: two gloo ranks train 2 steps of the
+    global batch 2 (one sample each) with the loss of the one-process run
+    (rtol 1e-4); rank 0 alone writes the JSONL and the checkpoint, which
+    ``--resume`` picks up for a third step. ``--batch 3 --dp 2`` exits
+    before it builds anything."""
+    args = ["--steps", "2", "--batch", "2", "--device", "cpu",
+            "--prefetch", "0"]
+    dp, one = str(tmp_path / "dp"), str(tmp_path / "one")
+    loop.main(args + ["--dp", "2", "--out", dp])
+    loop.main(args + ["--out", one])
+    events = _read(os.path.join(dp, "train.jsonl"))
+    starts = [e for e in events if e["event"] == "start"]
+    assert len(starts) == 1 and starts[0]["dp"] == 2
+    (last,) = [e for e in events if e["event"] == "train_step"]
+    (want,) = [e for e in _read(os.path.join(one, "train.jsonl"))
+               if e["event"] == "train_step"]
+    assert last["step"] == want["step"] == 2 and math.isfinite(last["loss"])
+    assert last["loss"] == pytest.approx(want["loss"], rel=1e-4)
+    assert last["num_pos"] == want["num_pos"]
+    ckpt = os.path.join(dp, "ckpt.msgpack")
+    assert int(weights.load_flax_msgpack(ckpt)["step"]) == 2
+
+    loop.main(["--steps", "3", "--batch", "2", "--device", "cpu", "--dp",
+               "2", "--out", dp, "--resume"])
+    events = _read(os.path.join(dp, "train.jsonl"))
+    assert [e["resumed_at"] for e in events if e["event"] == "start"] == \
+        [0, 2]
+    assert [e["step"] for e in events if e["event"] == "train_step"] == \
+        [2, 3]
+    assert int(weights.load_flax_msgpack(ckpt)["step"]) == 3
+
+    with pytest.raises(SystemExit, match="--batch 3 must divide by --dp 2"):
+        loop.main(["--device", "cpu", "--batch", "3", "--dp", "2",
+                   "--out", str(tmp_path / "refused")])
+    assert not os.path.exists(tmp_path / "refused")
+
+
+def _term_after_first_step(beat_path, done, deadline_s=120.0):
+    """Send SIGTERM to this process (the launcher) once ``beat_path``
+    shows step 1, unless ``done`` is set first."""
+    end = time.time() + deadline_s
+    while not done.is_set() and time.time() < end:
+        try:
+            with open(beat_path) as f:
+                step = json.load(f)["step"]
+        except (OSError, ValueError):
+            step = 0
+        if step >= 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+            return
+        time.sleep(0.01)
+
+
+def test_main_data_parallel_preempted_then_resumed(tmp_path):
+    """SIGTERM to ``main --dp 2``'s launcher after the first step: the
+    launcher passes it on, both ranks stop at the same step, rank 0 logs
+    'preempted' and checkpoints it, and ``--resume`` ends at step 6 on the
+    unbroken two-rank run's weights."""
+    args = ["--steps", "6", "--batch", "2", "--device", "cpu",
+            "--prefetch", "0", "--dp", "2"]
+    whole = str(tmp_path / "whole")
+    loop.main(args + ["--out", whole])
+
+    out = str(tmp_path / "run")
+    done = threading.Event()
+    sender = threading.Thread(
+        target=_term_after_first_step,
+        args=(os.path.join(out, "heartbeat.json"), done), daemon=True)
+    sender.start()
+    # a signal that comes after the run is only flagged
+    with elastic.GracefulShutdown():
+        loop.main(args + ["--out", out])
+        done.set()
+        sender.join()
+    events = _read(os.path.join(out, "train.jsonl"))
+    (stopped,) = [e["step"] for e in events if e["event"] == "preempted"]
+    assert 1 <= stopped < 6
+    ckpt = os.path.join(out, "ckpt.msgpack")
+    assert int(weights.load_flax_msgpack(ckpt)["step"]) == stopped
+
+    loop.main(args + ["--out", out, "--resume"])
+    events = _read(os.path.join(out, "train.jsonl"))
+    assert [e["resumed_at"] for e in events if e["event"] == "start"] == \
+        [0, stopped]
+    got = weights.load_flax_msgpack(ckpt)
+    want = weights.load_flax_msgpack(os.path.join(whole, "ckpt.msgpack"))
+    assert int(got["step"]) == 6
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(want)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_data_parallel_eval_longer_than_the_collective_timeout(tmp_path):
+    """``main --dp 2 --eval-every 1``'s ranks with a 5 s collective
+    timeout and an eval hook that first sleeps 10 s: every rank runs the
+    hook, so none waits in the next step's collective, and the run ends
+    with both evals logged once, by rank 0."""
+    from tpu_pillars_torch.parallel import launch, mesh_devices
+
+    import torch_parallel_ranks as ranks
+
+    out = str(tmp_path / "run")
+    args = loop.parse_args(["--steps", "2", "--batch", "2", "--device",
+                            "cpu", "--prefetch", "0", "--dp", "2",
+                            "--eval-every", "1", "--eval-scenes", "2",
+                            "--out", out])
+    launch(ranks.train_with_slow_eval, mesh_devices(2, "cpu"),
+           args=(args, 5.0, 10.0), timeout=240.0)
+    events = _read(os.path.join(out, "train.jsonl"))
+    assert [e["step"] for e in events if e["event"] == "eval"] == [1, 2]
+    assert [e["step"] for e in events if e["event"] == "train_step"] == \
+        [2]
 
 
 # ---- logging -------------------------------------------------------------

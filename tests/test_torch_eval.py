@@ -4,7 +4,7 @@ numpy arithmetic), the TTA merges, ``predict_tta`` and ``evaluate_scenes``
 with converted random weights (the detector tests' tolerance), the golden
 held-out mAP and TTA detections of the trained checkpoint, the Lyft-format
 fixture and dataset reader, ``evaluate_dataset`` and the CLI, the prefetch
-thread, and the data-parallel entry points that must refuse."""
+thread, and the CLI's ``--dp 2`` on two CPU ranks."""
 
 import csv
 import json
@@ -354,30 +354,28 @@ def test_cli_matches_jax_mAP(detectors, fixture_dirs, tmp_path, capsys):
     assert os.path.exists(sub)
 
 
-# ---- what is not ported must refuse ---------------------------------------
+# ---- data parallel ----------------------------------------------------------
 
-def test_data_parallel_entry_points_refuse(detectors, fixture_dirs, tmp_path,
-                                          capsys):
-    """A mesh and ``--dp 2`` are refused, pointing at the roadmap's data
-    parallelism item; ``--dp 1`` is one device, as in the JAX CLI (which
-    builds a mesh only above 1), and scores what ``evaluate_dataset``
-    scores."""
+def test_data_parallel_cli_scores_what_one_device_scores(
+        detectors, fixture_dirs, tmp_path):
+    """``--dp 2 --device cpu`` evaluates on two gloo ranks and scores what
+    ``--dp 1`` (one device, as in the JAX CLI) scores, within
+    tests/test_eval_pipeline.py:84's 1e-9; rank 0 alone writes the
+    metrics. ``--dp 1`` scores what ``evaluate_dataset`` scores."""
     _, tdet, variables = detectors
-    with pytest.raises(NotImplementedError, match="Queue 1, item 11"):
-        evaluate_dataset(tdet, lyft.LyftDataset(fixture_dirs[0]),
-                         mesh=object())
-    with pytest.raises(SystemExit):
-        cli.main(["--data", fixture_dirs[0], "--ckpt", "none", "--dp", "2"])
-    assert "Queue 1, item 11" in capsys.readouterr().err
     ckpt = _write_ckpt(variables, str(tmp_path / "ck.msgpack"))
-    out = str(tmp_path / "metrics.json")
-    cli.main(["--data", fixture_dirs[0], "--ckpt", ckpt, "--device", "cpu",
-              "--batch", "2", "--dp", "1", "--out", out])
-    with open(out) as f:
-        metrics = json.load(f)
+    metrics = {}
+    for dp in ("1", "2"):
+        out = str(tmp_path / f"metrics_dp{dp}.json")
+        cli.main(["--data", fixture_dirs[0], "--ckpt", ckpt, "--device",
+                  "cpu", "--batch", "2", "--dp", dp, "--out", out])
+        with open(out) as f:
+            metrics[dp] = json.load(f)
     want, _, _ = evaluate_dataset(tdet, lyft.LyftDataset(fixture_dirs[0]),
                                   batch_size=2)
-    assert metrics["num_samples"] == 3 and metrics["mAP"] == want
+    assert metrics["1"]["num_samples"] == 3 and metrics["1"]["mAP"] == want
+    assert metrics["2"]["num_samples"] == 3
+    assert metrics["2"]["mAP"] == pytest.approx(want, abs=1e-9)
 
 
 # ---- prefetch ---------------------------------------------------------------

@@ -192,7 +192,10 @@ def test_live_port_matches_jax_detector(artifact, loaded):
 
 def test_degenerate_inputs(artifact, loaded):
     """No points, and every point outside the detection range: the
-    artifact equals the live Detector, and pads as it does."""
+    artifact equals the live Detector. An empty cloud pads alike; the far
+    points the artifact keeps as given (n = 500, as the JAX artifact), the
+    live Detector crops them on the host (n = 0), and both give the same
+    boxes."""
     _, sd, _, _ = artifact
     live = Detector(TCFG, sd, device="cpu", nms_impl="pallas")
     rng = np.random.default_rng(3)
@@ -203,16 +206,51 @@ def test_degenerate_inputs(artifact, loaded):
     np.testing.assert_array_equal(pe, pl)
     assert ne == nl == 0
     pts, ns = _batch(loaded, [empty, far])
-    np.testing.assert_array_equal(ns, [0, 0])
+    np.testing.assert_array_equal(ns, [0, 500])
+    np.testing.assert_array_equal(pts[1, :500], far)
     got = loaded.predict_packed_batch(pts, ns)
     assert torch.isfinite(got).all()
     assert torch.equal(got, live.predict_packed_batch(pts, ns))
+    cropped, n_cropped = _batch(live, [empty, far])
+    np.testing.assert_array_equal(n_cropped, [0, 0])
+    assert torch.equal(got, live.predict_packed_batch(cropped, n_cropped))
     # the raw far points unpadded by the host crop: the device drops them
     raw = np.full((2, TCFG.max_points, 4), 1e6, np.float32)
     raw[1, :500] = far
     counts = np.asarray([0, 500], np.int32)
     assert torch.equal(loaded.predict_packed_batch(raw, counts),
                        live.predict_packed_batch(raw, counts))
+
+
+def test_pads_as_the_jax_artifact_over_budget(artifact, loaded, tmp_path):
+    """An over-budget cloud whose first rows are out of range: the
+    artifact keeps the same count and the same first rows as the JAX
+    artifact's ``pad_points`` (the first max_points rows as given, no host
+    crop), and both artifacts give the same packed detections, at
+    tests/test_torch_detector.py's tolerance."""
+    from tpu_pillars.export import export_inference as jax_export
+    from tpu_pillars.export import load_inference as jax_load
+
+    rng = np.random.default_rng(11)
+    far = rng.uniform(200, 400, (100, 4)).astype(np.float32)
+    near = make_scene(rng, CFG, num_objects=6, points_per_object=100,
+                      clutter=3600).points
+    cloud = np.concatenate([far, near])
+    assert len(near) >= CFG.max_points
+    path = str(tmp_path / "jax_art")
+    jax_export(CFG, artifact[0], path, batch_sizes=(1,), fused_frontend=True,
+               nms_impl="pallas")
+    jart = jax_load(path)
+    with pytest.warns(RuntimeWarning, match="204 dropped"):
+        got, n = loaded.pad_points(cloud)
+    want, jn = jart.pad_points(cloud)
+    assert n == jn == CFG.max_points
+    np.testing.assert_array_equal(got[:n], want[:jn])
+    np.testing.assert_array_equal(got[:100], far)
+    g = loaded.predict_packed_batch(got[None], np.asarray([n]))[0].numpy()
+    w = np.asarray(jart.predict_packed_batch(jnp.asarray(want[None]),
+                                             jnp.asarray([jn])))[0]
+    assert assert_packed_close(g, w, 1e-4, 5e-3) > 0
 
 
 def test_exported_rejects_wrong_batch(loaded):

@@ -9,8 +9,10 @@ Loads a checkpoint into a ``Detector`` on ``--device`` (default: the card;
 the CPU only when asked for), scores Lyft mAP (the competition protocol,
 global frame) over the dataset's samples, prints the per-class AP table,
 and optionally writes the metrics as JSON and the Kaggle submission CSV.
-``--dp`` above 1 (data-parallel evaluation) is not ported yet and is
-refused; ``--dp`` 0 or 1 evaluates on one device, as in the JAX CLI.
+``--dp N`` above 1 evaluates data-parallel over N ranks, one process each
+(``parallel.launch``): on the first N cards (NCCL), or with ``--device
+cpu`` on N CPU ranks (gloo); rank 0 prints and writes. ``--dp`` 0 or 1
+evaluates on one device, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ def main(argv=None) -> None:
     p.add_argument("--samples", type=int, default=0,
                    help="evaluate only the first N samples (0 = all)")
     p.add_argument("--dp", type=int, default=0,
-                   help="data-parallel evaluation over N devices: not "
-                        "ported yet, so only 0 or 1 (one device)")
+                   help="data-parallel evaluation over N ranks (one "
+                        "process each): each batch is split over them and "
+                        "the detections gathered (parallel/eval_dp.py)")
     p.add_argument("--full-size", action="store_true",
                    help="full 400x400 config instead of the tiny config")
     p.add_argument("--tta", action="store_true",
@@ -63,20 +66,33 @@ def main(argv=None) -> None:
                    default="stable",
                    help="score-tie visit order (MAP_PROTOCOL.md row 7)")
     args = p.parse_args(argv)
-
-    from tpu_pillars_torch.evaluation.pipeline import DP_NOT_PORTED
-
     if args.dp > 1:
-        p.error(f"--dp: {DP_NOT_PORTED}")
+        from tpu_pillars_torch.parallel import launch, mesh_devices
 
+        launch(evaluate, mesh_devices(args.dp, args.device), args=(args,))
+    else:
+        evaluate(args)
+
+
+def evaluate(args) -> None:
+    """The CLI's work on one device, or in each rank of ``--dp``'s group
+    (the rank's mesh from ``parallel.make_mesh_n``; rank 0 prints and
+    writes)."""
     from tpu_pillars_torch.config import PillarsConfig, tiny_config
     from tpu_pillars_torch.data.lyft import LyftDataset
     from tpu_pillars_torch.detector import Detector
     from tpu_pillars_torch.evaluation.pipeline import evaluate_dataset
     from tpu_pillars_torch.evaluation.tta import MODES
 
+    mesh = None
+    if args.dp > 1:
+        from tpu_pillars_torch.parallel import make_mesh_n
+
+        mesh = make_mesh_n(args.dp, device=args.device)
     config = PillarsConfig() if args.full_size else tiny_config()
-    det = Detector.from_checkpoint(config, args.ckpt, device=args.device)
+    det = Detector.from_checkpoint(
+        config, args.ckpt,
+        device=args.device if mesh is None else mesh.device)
     ds = LyftDataset(args.data)
     tokens = list(ds.sample_tokens())
     if args.samples > 0:
@@ -86,10 +102,14 @@ def main(argv=None) -> None:
     mAP, table, predictions = evaluate_dataset(
         det, ds, sample_tokens=tokens, num_sweeps=num_sweeps,
         global_frame=not args.lidar_frame, batch_size=args.batch,
-        tta_modes=MODES if args.tta else None, tta_merge=args.tta_merge,
-        match_rule=args.match_rule, tie_order=args.tie_order)
+        mesh=mesh, tta_modes=MODES if args.tta else None,
+        tta_merge=args.tta_merge, match_rule=args.match_rule,
+        tie_order=args.tie_order)
+    if mesh is not None and mesh.rank != 0:
+        return
 
-    print(f"samples: {len(tokens)}   device: {det.device}")
+    print(f"samples: {len(tokens)}   device: {det.device}"
+          + (f"   dp: {mesh.devices.size}" if mesh is not None else ""))
     with warnings.catch_warnings():
         # all-NaN columns (a class absent at every threshold) are expected:
         # they get the "(no GT)" tag below

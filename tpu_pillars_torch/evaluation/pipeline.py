@@ -1,12 +1,13 @@
 """Evaluation: run the detector over a dataset split, collect predictions
 and GT as ``EvalBox`` lists in one common frame, score Lyft mAP — port of
-``tpu_pillars/evaluation/pipeline.py`` on one device.
+``tpu_pillars/evaluation/pipeline.py``.
 
 Sweeps go through ``Detector.predict_packed_batch`` in batches; a producer
 thread (``train.prefetch.prefetch``) loads and pads the next batch while
-the card runs the current one. Data-parallel evaluation (the JAX package's
-``mesh`` argument) is not ported yet: ``ROADMAP.md``, Queue 1, item 11
-("Data parallelism", ``parallel/eval_dp.py``).
+the card runs the current one. With a ``mesh`` (``parallel.make_mesh``,
+in every rank of ``parallel.launch``) each batch is split over the ranks
+(``parallel.eval_dp.make_dp_packed_detector``) and every rank scores the
+gathered detections.
 """
 
 from __future__ import annotations
@@ -22,11 +23,6 @@ from tpu_pillars_torch.evaluation.tta import flip_points, merge_packed, \
     tta_union
 from tpu_pillars_torch.geometry.boxes import Box3D
 from tpu_pillars_torch.train.prefetch import prefetch
-
-DP_NOT_PORTED = ("data-parallel evaluation is not ported yet: see "
-                 "ROADMAP.md, Queue 1, item 11 (Data parallelism, "
-                 "parallel/eval_dp.py)")
-
 
 def _load_points(dataset: LyftDataset, tok: str, cfg, num_sweeps: int):
     sd = dataset.lidar_sample_data(tok)
@@ -55,16 +51,31 @@ def evaluate_dataset(
     ``batch_size`` (the last batch repeats its final sweep; the repeats are
     dropped). ``tta_modes`` (e.g. ``evaluation.tta.MODES``) runs every batch
     once per flip view and merges each sample's union per ``tta_merge``
-    ("wbf" or "nms", on ``det.device``). ``mesh`` must be None: with a mesh
-    this raises ``NotImplementedError`` (no single-device stand-in)."""
-    if mesh is not None:
-        raise NotImplementedError(DP_NOT_PORTED)
+    ("wbf" or "nms", on ``det.device``).
+
+    mesh: a ``parallel.Mesh``, in every rank of a launched group, with
+    ``det`` on the rank's device: each batch (``batch_size`` rounded up to
+    a multiple of the mesh size) is split over the ranks, each runs
+    ``det.model`` through ``parallel.make_dp_packed_detector`` (the f32
+    default front end, as the JAX package's) on its share, the detections
+    are gathered, and every rank returns the same scores."""
     cfg = det.config
     tokens = list(sample_tokens or dataset.sample_tokens())
     gt_boxes: List[EvalBox] = []
     pred_boxes: List[EvalBox] = []
     predictions: Dict[str, List[Box3D]] = {}
     modes = tuple(tta_modes) if tta_modes else ("none",)
+    if mesh is not None:
+        from tpu_pillars_torch.parallel.eval_dp import make_dp_packed_detector
+
+        n_dev = mesh.devices.size
+        batch_size = ((max(batch_size, n_dev) + n_dev - 1) // n_dev) * n_dev
+        dp_predict = make_dp_packed_detector(cfg, mesh)
+
+        def predict_b(pts_b, n_b):
+            return dp_predict(det.model, pts_b, n_b)
+    else:
+        predict_b = det.predict_packed_batch
 
     def host_batches():
         for start in range(0, len(tokens), batch_size):
@@ -84,7 +95,7 @@ def evaluate_dataset(
             yield chunk, per_mode
 
     for chunk, per_mode in prefetch(host_batches(), size=2):
-        packed_modes = [det.predict_packed_batch(pts_b, n_b).cpu().numpy()
+        packed_modes = [predict_b(pts_b, n_b).cpu().numpy()
                         for pts_b, n_b in per_mode]
         if tta_modes:
             packed_b = [

@@ -29,7 +29,10 @@ checkpoint.
 
 The round trip is exact: the loaded programs run the same ops on the same
 weights, and the tests pin packed outputs bit for bit against the live
-``Detector`` on the same device. An exported program does not record the
+``Detector`` on the same device and padded inputs. The padding is the JAX
+artifact's (``ExportedDetector.pad_points``: the first ``max_points`` rows
+as given, no host crop), so an over-budget cloud keeps the rows the JAX
+artifact keeps. An exported program does not record the
 backend's global switches, so ``ExportedDetector`` runs stage 1 of an f32
 artifact with TF32 off (``models.backbone.precision``), as the live model
 runs its RPN and head; the manifest says so (``"tf32": false``). An
@@ -191,13 +194,17 @@ class ExportedDetector:
                 self._calls[int(b_str)] = (model.module(), post.module())
 
     def pad_points(self, points: np.ndarray):
-        """``detector.pad_points`` with the live ``Detector``'s defaults:
-        the f32 wire, the host crop to a superset of the device's validity
-        test, and the first-max_points policy counted in
-        ``self.truncation``."""
+        """Pad as the JAX package's artifact does: the first max_points
+        rows AS GIVEN (no host crop; the device drops out-of-range points),
+        on the f32 wire, the drop counted in ``self.truncation``. So an
+        over-budget cloud keeps the same rows and count as the JAX
+        artifact; rows past the count hold the pad value, which the device
+        masks. The cloud must have the config's feature columns (extra
+        ones are dropped)."""
         from tpu_pillars_torch.detector import pad_points
 
-        return pad_points(points, self.config, self.truncation)
+        return pad_points(points, self.config, self.truncation,
+                          host_crop=False)
 
     def predict_packed_batch(self, points, num_points) -> torch.Tensor:
         """(B, M, F) f32 padded points + (B,) counts (host arrays or

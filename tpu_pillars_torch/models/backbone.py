@@ -76,15 +76,19 @@ class BatchNorm(nn.Module):
                             self.weight, self.bias, training=False,
                             eps=BN_EPS)
 
-    def train_forward(self, x):
+    def train_forward(self, x, mesh=None):
         """Batch-statistics BatchNorm of (B, C, H, W) x -> (y, mean, var),
         flax's arithmetic in f32 on ``x.float()``: y = (x - mean) *
         (rsqrt(var + eps) * scale) + bias, cast back to x's type; the
-        moments are f32."""
+        moments are f32. With a ``mesh`` (``parallel.Mesh``) the moments
+        E[x] and E[x^2] are averaged over its ranks before the variance,
+        as flax's ``BatchNorm(axis_name=)`` pmeans them (sync-BN)."""
         dims = (0, 2, 3)
         xf = x.float()
         mean = xf.mean(dim=dims)
         mean2 = (xf * xf).mean(dim=dims)
+        if mesh is not None:
+            mean, mean2 = mesh.pmean(torch.cat([mean, mean2])).chunk(2)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
@@ -121,13 +125,13 @@ class ConvBlock(nn.Module):
             x = torch.relu(bn(x))
         return x
 
-    def train_forward(self, x, dtype=torch.float32):
+    def train_forward(self, x, dtype=torch.float32, mesh=None):
         """Batch-statistics forward -> (y, mean_0, var_0, mean_1, ...)."""
         moments = []
         for i, (w, bn) in enumerate(zip(self.convs, self.bns)):
             x = F.conv2d(x.to(dtype), w.to(dtype),
                          stride=self.stride if i == 0 else 1, padding=1)
-            x, mean, var = bn.train_forward(x)
+            x, mean, var = bn.train_forward(x, mesh)
             x = torch.relu(x)
             moments += [mean, var]
         return (x, *moments)
@@ -147,9 +151,9 @@ class UpBlock(nn.Module):
         return torch.relu(self.bn(F.conv_transpose2d(
             x.to(dtype), self.weight.to(dtype), stride=self.stride)))
 
-    def train_forward(self, x, dtype=torch.float32):
+    def train_forward(self, x, dtype=torch.float32, mesh=None):
         y, mean, var = self.bn.train_forward(F.conv_transpose2d(
-            x.to(dtype), self.weight.to(dtype), stride=self.stride))
+            x.to(dtype), self.weight.to(dtype), stride=self.stride), mesh)
         return torch.relu(y), mean, var
 
 
@@ -183,11 +187,13 @@ class RPNBackbone(nn.Module):
             out += list(block.bns) + [up.bn]
         return out
 
-    def train_forward(self, x, remat: bool = False, dtype=torch.float32):
+    def train_forward(self, x, remat: bool = False, dtype=torch.float32,
+                      mesh=None):
         """Batch-statistics forward -> (features, moments) with one (mean,
-        var) per :meth:`batch_norms` entry, f32 whatever ``dtype``. remat
-        checkpoints each block: its activations are recomputed (with the
-        same casts) in the backward pass."""
+        var) per :meth:`batch_norms` entry, f32 whatever ``dtype``, the
+        moments over ``mesh``'s ranks when given. remat checkpoints each
+        block: its activations are recomputed (with the same casts, and
+        the same collectives on every rank) in the backward pass."""
         def run(fn, *args):
             if remat:
                 return checkpoint(fn, *args, use_reentrant=False)
@@ -195,9 +201,9 @@ class RPNBackbone(nn.Module):
 
         ups, flat = [], []
         for block, up in zip(self.blocks, self.ups):
-            x, *m = run(block.train_forward, x, dtype)
+            x, *m = run(block.train_forward, x, dtype, mesh)
             flat += m
-            u, *m = run(up.train_forward, x, dtype)
+            u, *m = run(up.train_forward, x, dtype, mesh)
             flat += m
             ups.append(u)
         moments = list(zip(flat[0::2], flat[1::2]))

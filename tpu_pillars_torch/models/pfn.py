@@ -37,18 +37,29 @@ class MaskedBatchNorm(BatchNorm):
         y = (x - self.running_mean) * torch.rsqrt(self.running_var + BN_EPS)
         return y * self.weight + self.bias
 
-    def train_forward(self, x, mask):
+    def train_forward(self, x, mask, mesh=None):
         """x (..., C), mask (...) bool -> (y in x's dtype, mean (C,) f32,
         var (C,) f32). In f32: count = max(sum(mask), 1), mean = sum(x *
         mask) / count, var = sum((x - mean)^2 * mask) / count (two passes);
         y = ((x - mean) * rsqrt(var + eps)) * scale + bias, cast to x's
-        dtype. The running statistics are left to :meth:`update_running`."""
+        dtype. With a ``mesh`` (sync-BN, as the flax module's
+        ``axis_name``) the count and the mean's numerator are summed over
+        its ranks, then the variance's numerator about that global mean.
+        The running statistics are left to :meth:`update_running`."""
         dims = tuple(range(x.dim() - 1))
         fmask = mask[..., None].to(torch.float32)
-        count = torch.clamp(fmask.sum(), min=1.0)
         xf = x.float()
-        mean = (xf * fmask).sum(dim=dims) / count
-        var = ((xf - mean) ** 2 * fmask).sum(dim=dims) / count
+        count = fmask.sum()
+        mean_num = (xf * fmask).sum(dim=dims)
+        if mesh is not None:
+            summed = mesh.psum(torch.cat([count[None], mean_num]))
+            count, mean_num = summed[0], summed[1:]
+        count = torch.clamp(count, min=1.0)
+        mean = mean_num / count
+        var_num = ((xf - mean) ** 2 * fmask).sum(dim=dims)
+        if mesh is not None:
+            var_num = mesh.psum(var_num)
+        var = var_num / count
         y = (xf - mean) * torch.rsqrt(var + BN_EPS)
         return (y * self.weight + self.bias).to(x.dtype), mean, var
 
@@ -80,13 +91,14 @@ class PillarFeatureNet(nn.Module):
             x = features.to(dtype) @ self.kernel.to(dtype)
         return _masked_max(torch.relu(self.bn(x).to(dtype)), mask)
 
-    def train_forward(self, features, mask, dtype=torch.float32):
+    def train_forward(self, features, mask, dtype=torch.float32,
+                      mesh=None):
         """The flax module in training (batch statistics): -> (features
         (..., P, C) in ``dtype``, mean, var), the moments f32 over the
-        valid slots of the whole batch. The caller holds
-        ``backbone.full_fp32`` across forward and backward."""
+        valid slots of the whole batch (of every rank of ``mesh``). The
+        caller holds ``backbone.full_fp32`` across forward and backward."""
         x = features.to(dtype) @ self.kernel.to(dtype)
-        y, mean, var = self.bn.train_forward(x, mask)
+        y, mean, var = self.bn.train_forward(x, mask, mesh)
         return _masked_max(torch.relu(y), mask), mean, var
 
     @torch.no_grad()

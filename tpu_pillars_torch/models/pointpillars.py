@@ -95,14 +95,15 @@ class PointPillars(nn.Module):
                                    self.config, dtype)
 
     def train_canvas_from_batch(self, batch: PillarBatch, remat: bool = False,
-                                dtype=torch.float32):
+                                dtype=torch.float32, mesh=None):
         """The training twin of :meth:`canvas_from_batch`: the PFN on batch
-        statistics (checkpointed when ``remat``) and K3 with its row-gather
-        backward -> (canvas in ``dtype``, mean, var), the PFN's f32 moments
-        for the caller's running-statistics update. The caller holds
-        ``full_fp32`` across forward and backward."""
+        statistics (checkpointed when ``remat``; over ``mesh``'s ranks when
+        given) and K3 with its row-gather backward -> (canvas in ``dtype``,
+        mean, var), the PFN's f32 moments for the caller's
+        running-statistics update. The caller holds ``full_fp32`` across
+        forward and backward."""
         def pfn(features, mask):
-            return self.pfn.train_forward(features, mask, dtype)
+            return self.pfn.train_forward(features, mask, dtype, mesh)
 
         feats, mean, var = (
             checkpoint(pfn, batch.features, batch.mask, use_reentrant=False)
@@ -131,14 +132,15 @@ class PointPillars(nn.Module):
             return self.rpn(x, dtype).permute(0, 2, 3, 1).contiguous()
 
     def train_features_from_canvas(self, canvas, remat: bool = False,
-                                   dtype=torch.float32):
+                                   dtype=torch.float32, mesh=None):
         """Batch-statistics RPN: canvas -> (feature map (B, H/2, W/2,
         C_feat) in ``dtype``, one f32 (mean, var) per
-        ``self.rpn.batch_norms()``). The caller holds ``full_fp32`` across
-        forward and backward."""
+        ``self.rpn.batch_norms()``, over ``mesh``'s ranks when given). The
+        caller holds ``full_fp32`` across forward and backward."""
         x = canvas.to(dtype).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        feat, moments = self.rpn.train_forward(x, remat=remat, dtype=dtype)
+        feat, moments = self.rpn.train_forward(x, remat=remat, dtype=dtype,
+                                               mesh=mesh)
         return feat.permute(0, 2, 3, 1), moments
 
     def wire_head(self, feat, dtype=torch.float32):

@@ -223,7 +223,8 @@ def pfn_from_table_diff(table, meta, w_eff, w_dec, config: PillarsConfig):
 
 
 def pfn_train_from_table(table, meta, w, bn_scale, bn_bias,
-                         config: PillarsConfig, eps: float = 1e-3):
+                         config: PillarsConfig, eps: float = 1e-3,
+                         mesh=None):
     """Train-mode fused PFN: decorated-space linear + masked BatchNorm on
     the batch statistics + ReLU + masked max, without the decorated
     (B, P, N, D) or post-linear tensors for the statistics. Port of the JAX
@@ -239,7 +240,9 @@ def pfn_train_from_table(table, meta, w, bn_scale, bn_bias,
     var = max(E[y^2] - E[y]^2, 0) (biased, count clamped to >= 1). The
     batch affine then folds into the weights (:func:`fold_bn`) and one
     :func:`pfn_from_table_diff` pass gives the features. Differentiable in
-    w, bn_scale and bn_bias.
+    w, bn_scale and bn_bias. With a ``mesh`` (``parallel.Mesh``) n, sum
+    r', S and the three t sums are summed over its ranks first (sync-BN
+    over the global batch: one all-reduce of F^2 + F + 3C + 1 floats).
 
     w (D, C) decorated-space kernel; bn_scale, bn_bias (C,) ->
     (feats (B, P, C), pid (B, P) int32, cnt (B, P), batch_mean (C,),
@@ -278,10 +281,19 @@ def pfn_train_from_table(table, meta, w, bn_scale, bn_bias,
     t = torch.where((cnt > 0.0)[:, None], t, 0.0)
 
     m_p = s_p @ w_eff                                          # (rows, C)
-    n = torch.clamp(cnt.sum(), min=1.0)
+    n_sum = cnt.sum()
     t_cnt = (cnt[:, None] * t).sum(dim=0)
     t_mp = (t * m_p).sum(dim=0)
     t_sq = (cnt[:, None] * t * t).sum(dim=0)
+    if mesh is not None:
+        # sync-BN: the sufficient statistics summed over the ranks, one
+        # flat buffer (differentiable: t depends on w)
+        flat = mesh.psum(torch.cat([n_sum[None], sbar, S.reshape(-1), t_cnt,
+                                    t_mp, t_sq]))
+        n_sum, sbar = flat[0], flat[1:1 + F]
+        S = flat[1 + F:1 + F + F * F].reshape(F, F)
+        t_cnt, t_mp, t_sq = flat[1 + F + F * F:].chunk(3)
+    n = torch.clamp(n_sum, min=1.0)
     mean = (sbar @ w_eff + t_cnt) / n
     e_u2 = ((S @ w_eff) * w_eff).sum(dim=0) / n
     var = torch.clamp(e_u2 + 2.0 * (t_mp / n) + t_sq / n - mean * mean,

@@ -5,7 +5,7 @@ elastic hooks. Port of ``tpu_pillars/train/loop.py``.
 
     python -m tpu_pillars_torch.train.loop --full-size --steps 20 --batch 8 \\
         --out DIR [--resume] [--ema 0.999] [--eval-every N] [--tensorboard] \\
-        [--bf16] [--no-fused-frontend] \\
+        [--bf16] [--no-fused-frontend] [--dp N] \\
         [--data JSON_DIR [--workers 4] [--no-augment] \\
         [--object-noise] [--cbgs 1.0] [--gt-sample 8] [--val-samples 8]]
 
@@ -26,7 +26,10 @@ losses). ``--no-fused-frontend`` trains on the classic front end.
 with the global augmentation (``--no-augment`` turns it off), and
 optionally per-object noise, GT-database sampling and class-balanced
 resampling; with ``--eval-every`` its last ``--val-samples`` samples are
-held out and scored with ``evaluate_dataset``.
+held out and scored with ``evaluate_dataset``. ``--dp N`` trains
+data-parallel over N ranks, one process each (``parallel.launch``): every
+rank takes its slice of the same global batch, BatchNorm statistics are
+synchronised and gradients averaged, and rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -205,27 +208,32 @@ def make_synthetic_eval_fn(config: PillarsConfig, num_scenes: int = 8,
     return eval_fn
 
 
-def make_dataset_eval_fn(config: PillarsConfig, dataset, tokens):
+def make_dataset_eval_fn(config: PillarsConfig, dataset, tokens,
+                         mesh=None):
     """eval_fn for :func:`fit`: detection mAP of ``evaluate_dataset`` on
     the held-out ``tokens`` of ``dataset``, served in f32 by one
-    ``Detector`` (the JAX loop's ``Detector(config, state.variables)``)."""
+    ``Detector`` (the JAX loop's ``Detector(config, state.variables)``);
+    with a ``mesh``, in every rank, each predicting its share."""
     from tpu_pillars_torch.evaluation.pipeline import evaluate_dataset
 
     serve = _serving(config)
 
     def eval_fn(state: TrainState):
         mAP, _table, _preds = evaluate_dataset(serve(state), dataset,
-                                               sample_tokens=tokens)
+                                               sample_tokens=tokens,
+                                               mesh=mesh)
         return {"mAP": mAP}
 
     return eval_fn
 
 
-def dataset_stream(args, config: PillarsConfig, tcfg: TrainConfig):
+def dataset_stream(args, config: PillarsConfig, tcfg: TrainConfig,
+                   mesh=None):
     """``main --data``'s batches and eval hook, wired as the JAX loop wires
     them: the last ``--val-samples`` samples are held out (with
     ``--eval-every``), the GT database is built from the unique train
-    tokens before ``--cbgs`` resamples them. Returns (batches, eval_fn)."""
+    tokens before ``--cbgs`` resamples them. The eval hook runs over
+    ``mesh``'s ranks when given. Returns (batches, eval_fn)."""
     from tpu_pillars_torch.data.augment import AugmentConfig, ObjectNoiseConfig
     from tpu_pillars_torch.data.lyft import LyftDataset
     from tpu_pillars_torch.train.data import (
@@ -241,7 +249,7 @@ def dataset_stream(args, config: PillarsConfig, tcfg: TrainConfig):
         train_tokens = tokens[: len(tokens) - n_val]
         val_tokens = tokens[len(tokens) - n_val:]
         if val_tokens:
-            eval_fn = make_dataset_eval_fn(config, ds, val_tokens)
+            eval_fn = make_dataset_eval_fn(config, ds, val_tokens, mesh)
     gt_sampler = None
     if args.gt_sample > 0:
         from tpu_pillars_torch.data.gt_sampler import (
@@ -308,6 +316,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="train on the classic front end (K1 on the raw "
                         "points, decorate, the PillarFeatureNet on batch "
                         "statistics, K3) instead of the fused one")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel training over N ranks, one process "
+                        "each (parallel.launch): the first N cards (NCCL), "
+                        "or with --device cpu N CPU ranks (gloo); per-rank "
+                        "step with sync-BN and averaged gradients "
+                        "(parallel/train_dp.py). --batch must divide by N")
     p.add_argument("--accum", type=int, default=1,
                    help="gradient-accumulation microbatches per step")
     p.add_argument("--bf16", action="store_true",
@@ -343,15 +357,46 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    if args.dp > 1:
+        from tpu_pillars_torch.parallel import launch, mesh_devices
+
+        if args.batch % args.dp:
+            raise SystemExit(f"--batch {args.batch} must divide by "
+                             f"--dp {args.dp}")
+        per_shard = args.batch // args.dp
+        if per_shard % args.accum:
+            raise SystemExit(
+                f"per-shard batch {per_shard} (--batch {args.batch} / --dp "
+                f"{args.dp}) must divide by --accum {args.accum}")
+        launch(train, mesh_devices(args.dp, args.device), args=(args,))
+        return
+    if args.batch % args.accum:
+        raise SystemExit(f"--batch {args.batch} must divide by --accum "
+                         f"{args.accum}")
+    train(args)
+
+
+def train(args: argparse.Namespace) -> None:
+    """``main``'s run on one device, or in each rank of ``--dp``'s group:
+    every rank builds the same global batches and trains on its slice
+    (``parallel.make_shardmap_train_step``). Every rank keeps the EMA and
+    runs the eval hook (a ``--data`` split is evaluated over the mesh), so
+    that no rank waits in a collective while another evaluates; rank 0
+    alone writes the checkpoints, the JSONL, TensorBoard and the
+    heartbeat."""
+    mesh = None
+    if args.dp > 1:
+        from tpu_pillars_torch.parallel import make_mesh_n
+
+        mesh = make_mesh_n(args.dp, device=args.device)
+    lead = mesh is None or mesh.rank == 0
     config = PillarsConfig() if args.full_size else tiny_config()
     tcfg = TrainConfig(learning_rate=args.lr, total_steps=args.steps,
                        batch_size=args.batch,
                        compute_dtype="bfloat16" if args.bf16 else "float32")
-    if args.batch % args.accum:
-        raise SystemExit(f"--batch {args.batch} must divide by --accum "
-                         f"{args.accum}")
-    state = create_train_state(config, tcfg, seed=args.seed,
-                               device=args.device)
+    state = create_train_state(
+        config, tcfg, seed=args.seed,
+        device=args.device if mesh is None else mesh.device)
     ckpt_path = os.path.join(args.out, "ckpt.msgpack")
     start = 0
     if args.resume and os.path.exists(ckpt_path):
@@ -361,9 +406,9 @@ def main(argv=None) -> None:
 
     eval_fn = None
     if args.data:
-        batches, eval_fn = dataset_stream(args, config, tcfg)
+        batches, eval_fn = dataset_stream(args, config, tcfg, mesh)
     else:
-        if args.cbgs > 0:
+        if args.cbgs > 0 and lead:
             print("warning: --cbgs needs --data; ignored on the synthetic "
                   "path", file=sys.stderr)
         batches = synthetic_batches(config, tcfg, seed=args.seed)
@@ -372,15 +417,20 @@ def main(argv=None) -> None:
         # first `start` batches, before any is moved to the device, replays
         # exactly the data the killed run saw
         batches = itertools.islice(batches, start, None)
+    if mesh is not None:
+        from tpu_pillars_torch.parallel.mesh import local_shard
+
+        # each rank keeps its slice of the global batch, on the host
+        batches = (local_shard(b, mesh) for b in batches)
     if args.prefetch > 0:
         batches = device_prefetch(batches, size=args.prefetch, device=device)
     if eval_fn is None and args.eval_every > 0 and not args.data:
         eval_fn = make_synthetic_eval_fn(config, num_scenes=args.eval_scenes,
                                          seed=args.seed + 100_000)
 
-    logger_ctx = JsonlLogger(os.path.join(args.out, "train.jsonl"),
-                             echo=True)
-    if args.tensorboard:
+    logger_ctx = JsonlLogger(os.path.join(args.out, "train.jsonl")
+                             if lead else None, echo=lead)
+    if args.tensorboard and lead:
         from tpu_pillars_torch.utils.tensorboard import (
             TeeLogger, TensorBoardWriter,
         )
@@ -389,6 +439,15 @@ def main(argv=None) -> None:
             os.path.join(args.out, "tb")))
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    step_kw = dict(remat=args.remat, accum_steps=args.accum,
+                   compute_dtype=getattr(torch, tcfg.compute_dtype),
+                   fused_frontend=not args.no_fused_frontend)
+    if mesh is None:
+        step_fn = make_train_step(config, **step_kw)
+    else:
+        from tpu_pillars_torch.parallel import make_shardmap_train_step
+
+        step_fn = make_shardmap_train_step(config, mesh, **step_kw)
     try:
         with logger_ctx as logger, GracefulShutdown() as shutdown:
             logger.log("start", steps=args.steps, batch=args.batch,
@@ -397,20 +456,23 @@ def main(argv=None) -> None:
                        accum=args.accum, prefetch=args.prefetch,
                        fused_frontend=not args.no_fused_frontend,
                        compute_dtype=tcfg.compute_dtype, data=args.data,
+                       dp=max(args.dp, 1),
                        params=sum(x.numel()
                                   for x in state.model.parameters()))
-            step_fn = make_train_step(
-                config, remat=args.remat, accum_steps=args.accum,
-                compute_dtype=getattr(torch, tcfg.compute_dtype),
-                fused_frontend=not args.no_fused_frontend)
+            # under --dp every rank stops at the same step: a signal seen
+            # by one rank is seen by all
+            stop = (shutdown if mesh is None
+                    else (lambda: mesh.any(shutdown())))
             fit(state, batches, steps=max(0, args.steps - start),
                 step_fn=step_fn, config=config, logger=logger,
-                ckpt_path=ckpt_path, eval_fn=eval_fn,
-                eval_every=args.eval_every or 1000, stop=shutdown,
+                ckpt_path=ckpt_path if lead else None,
+                eval_fn=eval_fn,
+                eval_every=args.eval_every or 1000, stop=stop,
                 heartbeat=Heartbeat(os.path.join(args.out,
-                                                 "heartbeat.json")),
+                                                 "heartbeat.json"))
+                if lead else None,
                 guard=NaNGuard(os.path.join(args.out, "diverged.msgpack"),
-                               config=config),
+                               config=config) if lead else None,
                 ema=maybe_tracker(state.model.parameters(), args.ema))
     finally:
         if args.prefetch > 0:

@@ -123,7 +123,7 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
                     remat=True, accum_steps: int = 1, assigner="windowed",
                     compute_dtype=torch.float32,
                     fused_frontend: bool = True,
-                    iou_chunk: int = 16384):
+                    iou_chunk: int = 16384, mesh=None):
     """Returns step(state, batch, split=None) -> (state, LossBreakdown).
 
     The step updates ``state.model`` and its optimizer in place and returns
@@ -152,8 +152,18 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
     compute_dtype: torch.float32 (default) or torch.bfloat16, the type of
     the canvas, the RPN and the head (see the module docstring).
 
+    mesh: a ``parallel.Mesh`` when the step runs per rank on the rank's
+    slice of a global batch (``parallel.make_shardmap_train_step``; the
+    JAX ``axis_name``). Every BatchNorm takes its batch statistics over
+    the ranks (sync-BN: K2's training twin sums its sufficient statistics,
+    the PillarFeatureNet its count and moment numerators, the RPN averages
+    its moments), and before the optimizer the gradients and the loss
+    terms are averaged over the ranks and num_pos summed, so that every
+    rank makes the same update, the global batch's.
+
     split: a dict that receives the step's synchronised host-clock split
-    in ms (frontend, assign, forward, backward, optimizer)."""
+    in ms (frontend, assign, forward, backward, allreduce with a mesh,
+    optimizer)."""
     remat_pfn, remat_rpn = remat_flags(remat)
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute_dtype must be torch.float32 or "
@@ -171,7 +181,7 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
 
             def pfn_feats(w, scale, bias):
                 return pfn_train_from_table(table, meta, w, scale, bias,
-                                            config)
+                                            config, mesh=mesh)
 
             args = (p.kernel, p.bn.weight, p.bn.bias)
             feats, pid, cnt, b_mean, b_var = (
@@ -187,7 +197,7 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
 
         def canvas_of(model, pillars):
             return model.train_canvas_from_batch(pillars, remat_pfn,
-                                                 compute_dtype)
+                                                 compute_dtype, mesh)
 
     def grads_of(model, batch: TrainBatch, phases: _Phases):
         with torch.no_grad():
@@ -199,7 +209,7 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
         with full_fp32():
             canvas, b_mean, b_var = canvas_of(model, inputs)
             feat, moments = model.train_features_from_canvas(
-                canvas, remat_rpn, compute_dtype)
+                canvas, remat_rpn, compute_dtype, mesh)
             cls_fm, box_fm, dir_fm = model.head.feature_major(feat,
                                                               compute_dtype)
             losses = detection_loss_fm(cls_fm, box_fm, dir_fm, targets,
@@ -244,12 +254,37 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
             sums = LossBreakdown(sums.total * inv, sums.cls * inv,
                                  sums.loc * inv, sums.dir * inv,
                                  sums.num_pos)
-        state.optimizer.step()
+        grads = None
+        if mesh is not None:
+            grads, sums = _reduce_over(mesh, model, sums)
+            phases.mark("allreduce")
+        state.optimizer.step(grads)
         state.step += 1
         phases.mark("optimizer")
         return state, sums
 
     return train_step
+
+
+@torch.no_grad()
+def _reduce_over(mesh, model, losses: LossBreakdown):
+    """The JAX step's ``pmean`` of the gradients and loss terms and ``psum``
+    of num_pos: one all-reduce of the flat gradients, one of the five
+    losses. Returns (the averaged gradients in parameter order, the
+    reduced losses)."""
+    params = list(model.parameters())
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = mesh.all_reduce_(torch.cat([g.reshape(-1) for g in grads]))
+    flat.div_(mesh.size)
+    out, at = [], 0
+    for p in params:
+        out.append(flat[at:at + p.numel()].view_as(p))
+        at += p.numel()
+    terms = mesh.all_reduce_(torch.stack([x.float() for x in losses]))
+    mean = terms / mesh.size
+    return out, LossBreakdown(mean[0], mean[1], mean[2], mean[3],
+                              terms[4].to(losses.num_pos.dtype))
 
 
 def make_eval_forward(config: PillarsConfig, dtype=torch.float32):
