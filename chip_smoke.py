@@ -114,6 +114,37 @@ line:
      implementations called directly. (e) Golden scene 0 rendered through
      ``scripts/torch_visualize.py``'s functions, saved as a PNG and read
      back.
+     3i. The single-sweep entry points at ``PillarsConfig()`` on the
+     trained checkpoint: the single-sweep ``build_forward_fn``, fused
+     (K1, K2, K3, K4) and classic (K1, K6, K3, K4), on each of the 8
+     golden scenes within the golden tolerances of the JAX detections,
+     bit-equal to the batched form on a batch of one, its canvas
+     bit-equal to the batch-8 row and its classes and valid rows equal to
+     it (the wire's bit-equality with the batch-8 row is counted and
+     printed: the RPN's convolutions may round by batch size; each of
+     the RPN's convolutions, batch of one against batch 8 on the same
+     input, and the whole wire with cuDNN off, are printed as the
+     witness);
+     ``pillarize_auto`` (K1) bit-equal to the plain ``pillarize`` on the
+     same CUDA tensors; ``rotated_nms_pallas`` (K4) keeping the fixpoint
+     NMS's set on each scene's candidates (but for threshold-boundary
+     pairs); ``top_k_two_stage`` equal to ``top_k_stable`` (values and
+     indices) on the batch's 8 x 720,000 thresholded scores and logits,
+     timed at rows 32, 64 and 128 beside it; the batch-of-one latency of
+     ``Detector.predict`` (median, host clock, synchronised, after a
+     warm-up) with its pad / upload / front end / RPN + head /
+     postprocess split, beside batch 8's per sweep, f32 and bf16.
+     3j. The user scripts: ``scripts/torch_rehearsal_dataset.py`` writes a
+     4-sample root that ``LyftDataset`` reads;
+     ``scripts/torch_gt_sampling_ablation.py`` runs its three arms
+     (baseline, GT sampling, CBGS) at ``ABLATION_STEPS`` steps an arm on
+     the card (finite losses; K1, K2, K3, K4 and K5 launched) and prints
+     the AP table; ``scripts/torch_export_artifact.py`` exports a 2-step
+     full-size ``train.loop`` run (EMA, eval) and the export serves the 8
+     golden scenes bit-equal to its source checkpoint (K1-K4 launched);
+     when the script picks the EMA file (a copy), the raw branch,
+     ``export_inference_checkpoint`` of the full checkpoint, is served
+     against that checkpoint too.
   5. Evaluation (run before training): the held-out mAP of the 8 golden
      scenes on the card (``evaluate_scenes``) within 1e-3 of the port's
      scorer on the golden JAX detections; ``predict_tta`` (4 views, WBF)
@@ -160,10 +191,17 @@ line:
      0.1% of the anchors of the JAX targets, three classic steps given the
      JAX targets within rtol 2e-3 of the JAX losses (num_pos equal) and
      every running statistic, the PillarFeatureNet's included, within rtol
-     1e-2 / atol 1e-4; ``fit`` at batch 8 with the dense assigner and with
-     K5 (f32, remat "all"), remat "off" and bf16 (step ms, sweeps/s, peak
-     memory, split); K1 and K3 (its bf16 -> bf16 instance in bf16, its f32
+     1e-2 / atol 1e-4; ``fit`` at batch 8 with the dense, the banded
+     (``assigner="banded"``) and the K5 assigner (f32, remat "all"), remat
+     "off" and bf16 (step ms, sweeps/s, peak memory, split); K1 and K3 (its bf16 -> bf16 instance in bf16, its f32
      one not) must launch, K2 not, K5 with K5 only.
+     4f. The dense (A, G) ``assign_targets`` (each sample, in chunks of
+     ``DENSE_AG_CHUNK`` anchors) and the banded class-blocked assigner
+     (``train.step.BAND_CELLS`` = 48) on 4e's batch (96 valid GT), each
+     against the class-blocked dense assigner and K5: labels
+     equal but on at most 0.1% of the anchors (ties and thresholds,
+     counted and printed), reg targets within 1e-4 elsewhere; ms and
+     transient GiB of each.
 
   6. Data parallel on one card (``parallel/``): two ranks on ``cuda:0``
      over gloo (``parallel.launch``; NCCL refuses two ranks on one
@@ -184,7 +222,8 @@ The line before the last is a JSON object ``{"kernels": [...]}``, each
 kernel with its launches on the path that runs it (serving: K1-K4, classic
 serving: K6, drop-ins: K8-K10, K11 and K7, training: K5; K3's f32 -> bf16
 instance: bf16 serving, its bf16 -> bf16 instance: bf16 training, each its
-own entry) and, under ``dp_launches``, each rank's launches in phase 6;
+own entry), under ``dp_launches`` each rank's launches in phase 6 and
+under ``phase_launches`` those of phases 3i, 3j and 4f;
 the last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -229,6 +268,10 @@ K5_IOU_TOL = 2e-5
 TRAIN_GOLDEN = os.path.join(ROOT, "tests", "data",
                             "torch_train_golden_synth4k.npz")
 TRAIN_STEPS = 6          # per remat mode; the first is a warm-up
+ABLATION_STEPS = 100     # an arm of scripts/torch_gt_sampling_ablation.py
+# anchors a chunk of the dense (A, G) assigner in phase 4f: at the JAX
+# default of 8,192 its 88 gated chunks a sample are launch- and sync-bound
+DENSE_AG_CHUNK = 131072
 
 
 def fail(msg: str) -> None:
@@ -592,6 +635,14 @@ def main() -> None:
     # export, profiling and visualisation
     phase_3h(cfg, card, clouds, golden)
 
+    # ---- phase 3i: the single-sweep entry points
+    phase_launches = {"3i": single_sweep_phase(cfg, card, golden, clouds)}
+
+    # ---- phase 3j: the user scripts (rehearsal dataset, ablation, export)
+    scripts = scripts_phase(cfg, card, golden)
+    phase_launches["3j"] = {k: scripts["ablation"][k] + scripts["export"][k]
+                            for k in scripts["ablation"]}
+
     # ---- phase 5 (run before training): evaluation on the card
     evaluation(cfg, golden)
 
@@ -627,6 +678,9 @@ def main() -> None:
           f"{ {k: classic[k] for k in ('emit', 'bev_scatter', 'assign')} }")
     print(f"launches on the serving surface (3g): {json.dumps(surface)}")
 
+    # ---- phase 4f: the dense (A, G) and banded assigners
+    phase_launches["4f"] = assigners_4f(cfg, dev)
+
     # ---- phase 6: data parallel on one card (two ranks over gloo)
     dp_launches = phase_6(cfg, clouds, dev)
 
@@ -655,7 +709,9 @@ def main() -> None:
               f"ms, library {lib}, bound {b_ms:.4f} ms ({b_by}), "
               f"{launches[name]} launches on the main path, "
               f"{train_launches.get(name, 0)} in the remat-all training run, "
-              f"{[c[name] for c in dp_launches]} by the ranks of phase 6")
+              f"{[c[name] for c in dp_launches]} by the ranks of phase 6, "
+              f"{ {p: c.get(name, 0) for p, c in phase_launches.items()} } "
+              f"in phases 3i, 3j and 4f")
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tpu_pillars_torch/csrc/"
@@ -664,7 +720,9 @@ def main() -> None:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": r["library_ms"],
-            "dp_launches": [c[name] for c in dp_launches]})
+            "dp_launches": [c[name] for c in dp_launches],
+            "phase_launches": {p: c.get(name, 0)
+                               for p, c in phase_launches.items()}})
     print(f"wall time: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -1088,7 +1146,7 @@ def train_fit(cfg, dev, remat, dtype=None, classic=False,
     peak = torch.cuda.max_memory_allocated()
     scatter = ("bev_scatter" if dtype == torch.float32
                else "bev_scatter_bf16")
-    for name in ("emit", scatter) + (("assign",) if assigner != "dense"
+    for name in ("emit", scatter) + (("assign",) if assigner == "windowed"
                                       else ()):
         if launches[name] == 0:
             fail(f"kernel {name} did not launch during training ({label})")
@@ -1096,7 +1154,7 @@ def train_fit(cfg, dev, remat, dtype=None, classic=False,
         fail(f"K3's f32 instance launched in {label} training")
     if classic and launches["fused_pfn"]:
         fail(f"K2 launched in {label} training")
-    if assigner == "dense" and launches["assign"]:
+    if assigner in ("dense", "banded") and launches["assign"]:
         fail(f"K5 launched in {label} training")
     if not np.isfinite(last).all():
         fail(f"training ({label}) gave a non-finite loss: {last}")
@@ -2013,9 +2071,10 @@ def anchor_major_serving(cfg, points, counts, golden):
 def classic_training(cfg, dev):
     """Phase 4e: classic training at the full config, batch 8 — the golden
     steps on the classic front end with the dense assigner's targets held
-    to the JAX ones, then ``fit`` timed with the dense assigner and with
-    K5 (f32, remat "all"), remat "off" and bf16 (K5). Returns the launches
-    of the f32 remat-"all" K5 run."""
+    to the JAX ones, then ``fit`` timed with the dense, the banded
+    (``train.step.BAND_CELLS``) and the K5 assigner (f32, remat "all"),
+    remat "off" and bf16 (K5). Returns the launches of the f32 remat-"all"
+    K5 run."""
     import torch
 
     from tpu_pillars_torch.train.loop import synthetic_batches
@@ -2052,6 +2111,7 @@ def classic_training(cfg, dev):
     runs = {}
     for key, remat, dtype, assigner in (
             ("dense", "all", None, "dense"),
+            ("banded", "all", None, "banded"),
             ("k5", "all", None, "windowed"),
             ("off", "off", None, "windowed"),
             ("bf16", "all", torch.bfloat16, "windowed")):
@@ -3136,6 +3196,496 @@ def phase_6(cfg, clouds, dev):
     return totals
 
 
+def _script(name):
+    """``scripts/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "scripts", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cudnn_mode(**flags):
+    """A context in which ``torch.backends.cudnn`` has ``flags``."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def mode():
+        c = torch.backends.cudnn
+        saved = {k: getattr(c, k) for k in flags}
+        for k, v in flags.items():
+            setattr(c, k, v)
+        try:
+            yield
+        finally:
+            for k, v in saved.items():
+                setattr(c, k, v)
+
+    return mode()
+
+
+def batch_size_witness(det, model_fn, pts, cnt, canvas_b, wire_b):
+    """Why a single sweep's wire is not bit-equal to its row of the batch
+    of 8 while its canvas is: each convolution of the RPN on the batch's
+    own input to it, batch 8 against each row as a batch of one, under
+    cuDNN as served (the layers whose rows differ are named); then the
+    whole wire with cuDNN off (the native convolutions). Printed, not
+    gated."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_pillars_torch.models.backbone import full_fp32
+
+    rpn = det.model.rpn
+    x = canvas_b.permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    n = x.shape[0]
+    differ, n_layers = [], 0
+
+    def compare(name, layer, inp):
+        nonlocal n_layers
+        n_layers += 1
+        many = layer(inp)
+        eq, d = 0, 0.0
+        for s in range(n):
+            one = layer(inp[s:s + 1])[0]
+            eq += int(torch.equal(one, many[s]))
+            d = max(d, float((one - many[s]).abs().max()))
+        if eq < n:
+            differ.append(f"{name} ({n - eq} rows, max |d| {d:.1e})")
+        return many
+
+    with torch.no_grad(), full_fp32():
+        for i, (block, up) in enumerate(zip(rpn.blocks, rpn.ups)):
+            for j, (w, bn) in enumerate(zip(block.convs, block.bns)):
+                stride = block.stride if j == 0 else 1
+                y = compare(f"block {i} conv {j}", lambda t: F.conv2d(
+                    t, w, stride=stride, padding=1), x)
+                x = torch.relu(bn(y))
+            compare(f"up {i}", lambda t: F.conv_transpose2d(
+                t, up.weight, stride=up.stride), x)
+        with cudnn_mode(enabled=False):
+            wire8 = model_fn(pts, cnt)
+            eq, d = 0, 0.0
+            for s in range(n):
+                one = model_fn(pts[s], cnt[s])
+                eq += int(all(torch.equal(a, b[s])
+                              for a, b in zip(one, wire8)))
+                d = max(d, max(float((a - b[s]).abs().max())
+                               for a, b in zip(one, wire8)))
+            served = max(float((a - b).abs().max())
+                         for a, b in zip(wire8, wire_b))
+    print(f"3i batch-size witness (cuDNN {torch.backends.cudnn.version()}, "
+          f"as served): {len(differ)} of the RPN's {n_layers} "
+          f"convolutions give a batch-of-one row that differs from the "
+          f"batch-8 row on the same input: " + ("; ".join(differ) or "none"))
+    print(f"3i batch-size witness: the whole wire with cuDNN off: single "
+          f"sweep bit-equal to the batch-8 row on {eq} of {n} scenes (max "
+          f"|d| {d:.3e}); cuDNN off against cuDNN on, batch 8: max |d| "
+          f"{served:.3e}")
+
+
+def single_sweep_phase(cfg, card, golden, clouds):
+    """Phase 3i: the single-sweep entry points at ``PillarsConfig()`` on the
+    trained artifact. Returns the launches of the single-sweep forwards (the
+    8 golden scenes, fused then classic)."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.detector import (
+        Detector, build_forward_fn, build_model_fn, detections_to_boxes,
+        pack_detections, packed_to_boxes, resolve_device,
+    )
+    from tpu_pillars_torch.ops import emit, nms, postprocess
+    from tpu_pillars_torch.ops.anchors import make_anchors
+    from tpu_pillars_torch.ops.nms_overlap import rotated_nms_pallas
+    from tpu_pillars_torch.ops.voxelize import pillarize
+
+    t_phase = time.perf_counter()
+    dev = resolve_device()
+    gclouds = golden_clouds(golden)
+    total = {}
+    for front, kw, kernels in (
+            ("fused", {}, ("emit", "fused_pfn", "bev_scatter",
+                           "nms_overlap")),
+            ("classic", {"fused_frontend": False},
+             ("emit", "pfn", "bev_scatter", "nms_overlap"))):
+        det = Detector.from_checkpoint(cfg, CKPT, **kw)
+        forward = build_forward_fn(det.model, cfg, **kw)
+        model_fn = build_model_fn(det.model, cfg, **kw)
+        padded = [det.pad_points(c) for c in gclouds]
+        pts = torch.from_numpy(np.stack([p for p, _ in padded])).to(dev)
+        cnt = torch.from_numpy(np.asarray([n for _, n in padded])).to(dev)
+        _build.reset_launches()
+        singles = [forward(pts[s], cnt[s]) for s in range(len(gclouds))]
+        torch.cuda.synchronize()
+        launched = dict(_build.LAUNCHES)
+        for name in kernels:
+            if launched[name] == 0:
+                fail(f"3i: kernel {name} did not launch in the {front} "
+                     f"single-sweep forward")
+            total[name] = total.get(name, 0) + launched[name]
+        if front == "classic" and launched["fused_pfn"]:
+            fail("3i: K2 launched on the classic single-sweep forward")
+        worst, n_boxes = np.zeros(3), 0
+        for s, one in enumerate(singles):
+            got = detections_to_boxes(one, cfg)
+            want = packed_to_boxes(golden["packed"][s], cfg)
+            worst = np.maximum(worst, check_boxes(got, want, s))
+            n_boxes += len(got)
+        # against the batched form: its batch of one bit for bit, the
+        # rows of the batch of 8 (canvas bit for bit; the RPN's convolutions
+        # may round by batch size)
+        batch = forward(pts, cnt)
+        canvas_b = model_fn.canvas(pts, cnt)
+        wire_b = model_fn(pts, cnt)
+        n_det_equal, n_wire_equal, wire_d, det_d = 0, 0, 0.0, 0.0
+        for s, one in enumerate(singles):
+            if not torch.equal(model_fn.canvas(pts[s], cnt[s]), canvas_b[s]):
+                fail(f"3i ({front}): scene {s}'s single-sweep canvas differs "
+                     f"from the batch's row")
+            packed = pack_detections(one)
+            b1 = pack_detections(forward(pts[s:s + 1], cnt[s:s + 1]))[0]
+            if not torch.equal(packed, b1):
+                fail(f"3i ({front}): scene {s} differs from the batched "
+                     f"form on a batch of one")
+            row = pack_detections(batch)[s]
+            n_det_equal += int(torch.equal(packed, row))
+            det_d = max(det_d, float((packed - row).abs().max()))
+            wire = model_fn(pts[s], cnt[s])
+            n_wire_equal += int(all(torch.equal(a, b[s])
+                                    for a, b in zip(wire, wire_b)))
+            wire_d = max(wire_d, max(float((a - b[s]).abs().max())
+                                     for a, b in zip(wire, wire_b)))
+            if not torch.equal(packed[:, 8:], row[:, 8:]):
+                fail(f"3i ({front}): scene {s}'s classes or valid rows "
+                     f"differ from the batch's row")
+            check_boxes(detections_to_boxes(one, cfg),
+                        packed_to_boxes(row.cpu().numpy(), cfg), s,
+                        ref="batch row")
+        if front == "fused":
+            batch_size_witness(det, model_fn, pts, cnt, canvas_b, wire_b)
+        print(f"3i single sweep ({front}): {len(singles)} golden scenes, "
+              f"{n_boxes} boxes match the JAX detections (worst |d score| "
+              f"{worst[0]:.3e}, |d centre| {worst[1]:.3e} m, |d yaw| "
+              f"{worst[2]:.3e} rad); canvas bit-equal to the batch-8 rows "
+              f"and detections bit-equal to a batch of one on every scene; "
+              f"wire bit-equal to the batch-8 row on {n_wire_equal} of "
+              f"{len(singles)} scenes (max |d| {wire_d:.3e}), detections on "
+              f"{n_det_equal} (max |d| {det_d:.3e}); launches {launched}")
+        del det, forward, model_fn, batch, canvas_b, wire_b
+        torch.cuda.empty_cache()
+
+    # pillarize_auto (K1 on a batch of one) against the plain pillarize
+    det = Detector.from_checkpoint(cfg, CKPT)
+    for s, cloud in enumerate(gclouds):
+        p, n = det.pad_points(cloud)
+        p = torch.from_numpy(p).to(dev)
+        n = torch.tensor(n, device=dev)
+        got = emit.pillarize_auto(p, n, cfg)
+        want = pillarize(p, n, cfg)
+        for name, a, b in zip(got._fields, got, want):
+            if not torch.equal(a, b):
+                fail(f"3i: pillarize_auto's {name} differs from the plain "
+                     f"pillarize on golden scene {s}")
+    print(f"3i: pillarize_auto (K1) bit-equal to the plain pillarize on "
+          f"{len(gclouds)} golden scenes")
+
+    # rotated_nms_pallas (K4) against the fixpoint NMS on each scene's
+    # candidates, recorded from the single-sweep forward
+    seen = []
+    entry = postprocess.rotated_nms_overlap
+
+    def recording(shifted, valid, thr, class_ids=None, class_gap=0.0):
+        seen.append((shifted.clone(), valid.clone(), class_ids.clone(), thr,
+                     class_gap))
+        return entry(shifted, valid, thr, class_ids=class_ids,
+                     class_gap=class_gap)
+
+    postprocess.rotated_nms_overlap = recording
+    try:
+        for cloud in gclouds:
+            det.predict(cloud)
+    finally:
+        postprocess.rotated_nms_overlap = entry
+    n_keep = 0
+    for s, (shifted, valid, cls, thr, gap) in enumerate(seen):
+        boxes, valid, cls = shifted[0], valid[0], cls[0]
+        keep = rotated_nms_pallas(boxes, None, valid, thr, class_ids=cls,
+                                  class_gap=gap)
+        want = nms.rotated_nms(boxes, None, valid, thr)
+        bad = (keep != want).nonzero()[:, 0].cpu().numpy()
+        if len(bad):
+            b = boxes.cpu().numpy()
+            near = [np.min(np.abs(iou64_pairs(np.repeat(b[i:i + 1], len(b),
+                                                        0), b) - thr))
+                    for i in bad]
+            if min(near) >= NMS_BOUNDARY_TOL:
+                fail(f"3i: rotated_nms_pallas keeps another set than the "
+                     f"fixpoint NMS on scene {s}, no pair at the threshold")
+        n_keep += int(keep.sum())
+    print(f"3i: rotated_nms_pallas (K4) keeps the fixpoint NMS's set on "
+          f"{len(seen)} scenes ({n_keep} kept)")
+
+    # top_k_two_stage against top_k_stable on the batch's thresholded
+    # own-class scores, 8 x 720,000 -> 1,024
+    padded = [det.pad_points(c) for c in clouds]
+    pts = torch.from_numpy(np.stack([p for p, _ in padded])).to(dev)
+    cnt = torch.from_numpy(np.asarray([n for _, n in padded])).to(dev)
+    own = det._stage1(pts, cnt)[0]
+    _, anchor_cls = make_anchors(cfg)
+    anchor_cls = torch.from_numpy(np.array(anchor_cls, np.int64)).to(dev)
+    thr = torch.tensor([c.score_threshold for c in cfg.classes],
+                       device=dev)[anchor_cls]
+    sc = torch.sigmoid(own)
+    masked = torch.where(sc >= thr, sc, -1.0)
+    k = cfg.pre_nms_top_k
+    times = {"stable": cuda_ms(lambda: postprocess.top_k_stable(masked, k),
+                               20)}
+    for x, label in ((masked, "thresholded scores"), (own, "logits")):
+        v1, i1 = postprocess.top_k_stable(x, k)
+        for rows in (32, 64, 128):
+            v2, i2 = postprocess.top_k_two_stage(x, k, rows)
+            if not (torch.equal(v1, v2) and torch.equal(i1, i2)):
+                fail(f"3i: top_k_two_stage (rows {rows}) differs from "
+                     f"top_k_stable on the {label}")
+    for rows in (32, 64, 128):
+        times[f"two_stage_rows{rows}"] = cuda_ms(
+            lambda: postprocess.top_k_two_stage(masked, k, rows), 20)
+    print(f"3i: top_k_two_stage equal to top_k_stable (values and indices) "
+          f"on the {tuple(masked.shape)} thresholded scores "
+          f"({int((masked == 1.0).sum())} at 1.0) and logits, k {k}; ms "
+          f"(CUDA events, median of 5 x 20): "
+          + ", ".join(f"{key} {val:.4f}" for key, val in times.items()))
+    del det, pts, cnt, own, masked, sc
+    torch.cuda.empty_cache()
+
+    # batch-of-one latency beside batch 8, f32 and bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        det = Detector.from_checkpoint(cfg, CKPT, dtype=dtype)
+        name = "f32" if dtype == torch.float32 else "bf16"
+        det.predict(clouds[0])
+        torch.cuda.synchronize()
+        lat = []
+        for _ in range(3):
+            for cloud in clouds:
+                t = time.perf_counter()
+                det.predict(cloud)
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t) * 1e3)
+        one = stage_split(det, None, None, clouds[:1],
+                          f"{name}, one sweep")
+        eight = stage_split(det, None, None, clouds, f"{name}, batch 8")
+        print(f"3i batch-of-one latency ({name}, {card}): Detector.predict "
+              f"median {float(np.median(lat)):.2f} ms a sweep (min "
+              f"{min(lat):.2f}, max {max(lat):.2f}, {len(lat)} calls); split "
+              f"of one sweep (ms): pad {one['pad_ms']:.2f}, upload "
+              f"{one['upload_ms']:.2f}, front end {one['frontend_ms']:.2f}, "
+              f"RPN + head {one['rpn_head_ms']:.2f}, postprocess "
+              f"{one['postprocess_ms']:.2f}, total {one['total_ms']:.2f}; "
+              f"batch 8: {eight['total_ms'] / len(clouds):.2f} ms a sweep "
+              f"({eight['total_ms']:.2f} a batch)")
+        del det
+        torch.cuda.empty_cache()
+    print(f"phase 3i ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def scripts_phase(cfg, card, golden):
+    """Phase 3j: the three user scripts. Returns the launches of the
+    ablation run and of the exported artifact's golden run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.data.lyft import LyftDataset
+    from tpu_pillars_torch.detector import Detector
+    from tpu_pillars_torch.train import loop
+    from tpu_pillars_torch.train.checkpoint import export_inference_checkpoint
+
+    t_phase = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        res = _script("torch_rehearsal_dataset").main(
+            ["--root", os.path.join(tmp, "rehearsal"), "--scenes", "2",
+             "--samples-per-scene", "2"])
+        ds = LyftDataset(res["json_dir"])
+        tokens = ds.sample_tokens()
+        if len(tokens) != 4:
+            fail(f"3j: the rehearsal root holds {len(tokens)} samples, not 4")
+        print(f"3j rehearsal dataset: {len(tokens)} samples, "
+              f"{res['bytes'] / 1e6:.1f} MB in "
+              f"{time.perf_counter() - t:.1f} s; "
+              f"{sum(len(ds.get_boxes_lidar(k)) for k in tokens)} GT boxes")
+
+        t = time.perf_counter()
+        _build.reset_launches()
+        ablation = _script("torch_gt_sampling_ablation").main(
+            ["--steps", str(ABLATION_STEPS), "--cbgs"])
+        torch.cuda.synchronize()
+        launches["ablation"] = dict(_build.LAUNCHES)
+        for name in ("emit", "fused_pfn", "bev_scatter", "nms_overlap",
+                     "assign"):
+            if launches["ablation"][name] == 0:
+                fail(f"3j: kernel {name} did not launch in the ablation")
+        for arm, r in ablation.items():
+            if not np.isfinite(r["final_loss"]):
+                fail(f"3j: ablation arm {arm} ended on a non-finite loss")
+        print(f"3j ablation ({ABLATION_STEPS} steps an arm, "
+              f"{time.perf_counter() - t:.1f} s): "
+              + json.dumps({a: {k: round(v, 4) for k, v in r.items()}
+                            for a, r in ablation.items()})
+              + f"; launches {launches['ablation']}")
+
+        t = time.perf_counter()
+        run = os.path.join(tmp, "run")
+        loop.main(["--full-size", "--steps", "2", "--batch", "8", "--ema",
+                   "0.999", "--eval-every", "2", "--eval-scenes", "2",
+                   "--out", run])
+        out = os.path.join(tmp, "artifact", "export.msgpack")
+        exported = _script("torch_export_artifact").main(
+            ["--run", run, "--out", out])
+        # the script's pick against its source; when it picked the EMA
+        # file (a copy), also the raw branch: the optimizer state stripped
+        # by export_inference_checkpoint against the full checkpoint
+        pairs = [("EMA" if exported["ema"] else "raw", out,
+                  os.path.join(run, "ckpt.msgpack.ema" if exported["ema"]
+                               else "ckpt.msgpack"))]
+        if exported["ema"]:
+            raw_out = os.path.join(tmp, "artifact", "raw.msgpack")
+            export_inference_checkpoint(raw_out,
+                                        os.path.join(run, "ckpt.msgpack"),
+                                        config=cfg)
+            pairs.append(("raw", raw_out, os.path.join(run, "ckpt.msgpack")))
+        _build.reset_launches()
+        n_boxes = {}
+        for branch, art_path, source in pairs:
+            art = Detector.from_checkpoint(cfg, art_path)
+            live = Detector.from_checkpoint(cfg, source)
+            n_boxes[branch] = 0
+            for s, cloud in enumerate(golden_clouds(golden)):
+                got = art.predict(cloud)
+                if not same_boxes(got, live.predict(cloud)):
+                    fail(f"3j: the {branch} export's boxes on golden scene "
+                         f"{s} differ from its source checkpoint's")
+                if not all(np.isfinite(b.to_array()).all() for b in got):
+                    fail(f"3j: non-finite boxes from the {branch} export on "
+                         f"scene {s}")
+                n_boxes[branch] += len(got)
+            del art, live
+        torch.cuda.synchronize()
+        launches["export"] = dict(_build.LAUNCHES)
+        for name in ("emit", "fused_pfn", "bev_scatter", "nms_overlap"):
+            if launches["export"][name] == 0:
+                fail(f"3j: kernel {name} did not launch serving the export")
+        print(f"3j export: a 2-step full-size run (EMA, eval); the script "
+              f"picked the {pairs[0][0]} weights (mAP "
+              f"{exported['mAP']:.4f}, EMA {exported['mAP_ema']:.4f}), "
+              f"{exported['bytes'] / 1e6:.1f} MB; each branch's artifact ("
+              + ", ".join(f"{b} by "
+                          f"{'a copy' if b == 'EMA' else 'stripping'}"
+                          for b, _, _ in pairs)
+              + f") serves the 8 golden scenes bit-equal to its source "
+              f"checkpoint (boxes {n_boxes}); "
+              f"{time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    print(f"phase 3j ({card}): {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def compare_targets(got, want):
+    """Two batched ``Targets``: the anchors whose labels differ (positive,
+    class weight, direction or class), those whose reg targets differ by
+    more than 1e-4 while positive in both (tests/test_torch_assign.py's
+    ``_compare`` boundary set), and the largest reg |d| elsewhere."""
+    import torch
+
+    pos_g, pos_w = got.reg_weights > 0, want.reg_weights > 0
+    label = ((pos_g != pos_w) | (got.cls_weights != want.cls_weights)
+             | (got.dir_targets != want.dir_targets)
+             | (got.cls_onehot != want.cls_onehot).any(dim=1))
+    reg = (got.reg_targets - want.reg_targets).abs().amax(dim=1)
+    boundary = label | ((reg > 1e-4) & pos_g & pos_w)
+    ok = ~boundary
+    return int(label.sum()), int(boundary.sum()), float(
+        torch.where(ok, reg, 0.0).max())
+
+
+def assigners_4f(cfg, dev):
+    """Phase 4f: the dense (A, G) ``assign_targets`` (each sample,
+    ``DENSE_AG_CHUNK`` anchors a chunk) and the banded class-blocked
+    assigner (``make_assigner(cfg, "banded")``) on 4e's batch, against
+    the class-blocked dense assigner and K5; ms and transient GiB each.
+    Returns the launches of the phase (K5's reference call)."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.ops.anchors import make_anchors
+    from tpu_pillars_torch.ops.target_assigner import Targets, assign_targets
+    from tpu_pillars_torch.train.loop import synthetic_batches
+    from tpu_pillars_torch.train.state import TrainConfig
+    from tpu_pillars_torch.train.step import batch_to_device, make_assigner
+
+    t_phase = time.perf_counter()
+    batch = batch_to_device(next(synthetic_batches(
+        cfg, TrainConfig(batch_size=BATCH), seed=SEED)), dev)
+    gt = (batch.gt_boxes, batch.gt_classes, batch.gt_valid)
+    anchors, anchor_cls = make_anchors(cfg)
+    anchors = torch.from_numpy(np.array(anchors)).to(dev)
+    anchor_cls = torch.from_numpy(np.array(anchor_cls, np.int64)).to(dev)
+
+    def dense_ag(boxes, cls, valid):
+        per = [assign_targets(anchors, anchor_cls, boxes[b], cls[b],
+                              valid[b], cfg, iou_chunk=DENSE_AG_CHUNK)
+               for b in range(boxes.shape[0])]
+        return Targets(*(torch.stack(x) for x in zip(*per)))
+
+    _build.reset_launches()
+    assigners = {"class-blocked": make_assigner(cfg, "dense"),
+                 "K5": make_assigner(cfg, "windowed"),
+                 "dense (A, G)": dense_ag,
+                 "banded 48": make_assigner(cfg, "banded")}
+    targets = {}
+    for name, assign in assigners.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        targets[name] = assign(*gt)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        ms = cuda_ms(lambda: assign(*gt), 1, reps=3)
+        print(f"4f assigner {name} (batch {BATCH}, "
+              f"{int(batch.gt_valid.sum())} valid GT): {ms:.3f} ms (CUDA "
+              f"events, median of 3), {peak:.3f} GiB transient, "
+              f"{int(targets[name].num_pos.sum())} positives")
+    launched = dict(_build.LAUNCHES)
+    n_anchors = BATCH * cfg.num_anchors
+    for name in ("dense (A, G)", "banded 48"):
+        for ref in ("class-blocked", "K5"):
+            n_label, n_bound, reg_d = compare_targets(targets[name],
+                                                      targets[ref])
+            print(f"4f {name} against {ref}: labels differ on {n_label} of "
+                  f"{n_anchors} anchors (ties and thresholds; {n_bound} with "
+                  f"the reg boundary), reg |d| elsewhere {reg_d:.2e}")
+            if n_bound > 1e-3 * n_anchors or reg_d > 1e-4:
+                fail(f"4f: the {name} assigner differs from the {ref} one "
+                     f"on {n_bound} anchors (reg |d| {reg_d:.2e})")
+    del targets, batch, gt
+    torch.cuda.empty_cache()
+    print(f"phase 4f: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{launched}")
+    return launched
+
+
 def iou64_pairs(a, b):
     """Float64 rotated BEV IoU of box pairs a[n], b[n] by the port's polygon
     clip (``reference_cpu.postprocess``): the referee where two f32 IoUs
@@ -3192,8 +3742,9 @@ def golden_check(det, golden, label):
 
 
 def stage_split(det, points, counts, clouds, label="fused front end"):
-    """Host-clock split of one batch-8 call (synchronised after each stage),
-    median of 5, and the end-to-end rate from numpy clouds to host boxes."""
+    """Host-clock split of one call on ``clouds`` (batch 8, or one sweep;
+    synchronised after each stage), median of 5, and the end-to-end rate
+    from numpy clouds to host boxes. Returns the medians."""
     import numpy as np
     import torch
 
@@ -3229,6 +3780,7 @@ def stage_split(det, points, counts, clouds, label="fused front end"):
           f"clock, ms): " + json.dumps(med))
     print(f"end to end ({label}): {len(clouds) / med['total_ms'] * 1e3:.2f} "
           f"sweeps/s at batch {len(clouds)}")
+    return med
 
 
 if __name__ == "__main__":

@@ -14,7 +14,8 @@ batch (8 lidar-like sweeps of 100,000 points, seed 0): (8, 720,000)
 scores -> the config's 1,024 candidates. Both selections must give the same
 values and indices (the lowest-index tie rule of ``lax.top_k``); each is
 timed with CUDA events (median of 5 repeats of ``--iters`` calls). The
-two-stage selection lives only here: ``ops.postprocess`` keeps the sort.
+two-stage selection is ``ops.postprocess.top_k_two_stage``, which the
+postprocess does not use: it keeps the sort.
 Prints the card (name and power limit) and, last, one JSON line. Needs a
 card; imports nothing of JAX.
 """
@@ -23,34 +24,11 @@ from __future__ import annotations
 
 import argparse
 import json
-import math
 import os
 import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-def top_k_two_stage(x, k: int, rows: int):
-    """Exact top-k along the last dim of (B, n): each of ``rows`` rows
-    (padded with -inf) keeps its min(k, row length) largest, then the k
-    largest of the survivors. Both stages are stable sorts and the
-    survivors stay row-major, so ties go to the lowest index."""
-    import torch
-
-    from tpu_pillars_torch.ops.postprocess import top_k_stable
-
-    n = x.shape[-1]
-    m = -(-n // rows)
-    pad = rows * m - n
-    if pad:
-        x = torch.cat([x, x.new_full(x.shape[:-1] + (pad,), -math.inf)],
-                      dim=-1)
-    v, i = top_k_stable(x.reshape(x.shape[:-1] + (rows, m)), min(k, m))
-    flat_i = (torch.arange(rows, device=x.device)[:, None] * m + i).flatten(
-        -2)
-    v2, sel = top_k_stable(v.flatten(-2), k)
-    return v2, torch.gather(flat_i, -1, sel)
 
 
 def main():
@@ -69,7 +47,9 @@ def main():
     from tpu_pillars_torch.config import PillarsConfig
     from tpu_pillars_torch.detector import Detector
     from tpu_pillars_torch.ops.anchors import make_anchors
-    from tpu_pillars_torch.ops.postprocess import top_k_stable
+    from tpu_pillars_torch.ops.postprocess import (
+        top_k_stable, top_k_two_stage,
+    )
     from tpu_pillars_torch.train.step import make_eval_forward
 
     card = subprocess.run(

@@ -174,6 +174,7 @@ def test_dense_assigners_all_invalid_equal_and_padding_finite(
 def test_make_assigner_names():
     assert "windowed" in make_assigner(TCFG, "windowed").__qualname__
     assert "classwise" in make_assigner(TCFG, "dense").__qualname__
+    assert "classwise" in make_assigner(TCFG, "banded").__qualname__
     fixed = lambda *gt: None  # noqa: E731
     assert make_assigner(TCFG, fixed) is fixed
     for name in ("auto", "fastest"):

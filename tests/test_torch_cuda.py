@@ -50,7 +50,10 @@ also held at C = 96 and 256, D = 1, N = 16 and 40, a ragged pillar count,
 more pillars than the grid has warps and a pillar whose only valid slot is
 the last, into memory that held NaN; K1, K2, K5, K6, K7, K8 and K11
 launch once per call; with two cards, every kernel launches on
-``cuda:1`` while ``cuda:0`` is current."""
+``cuda:1`` while ``cuda:0`` is current. The single-sweep entry points:
+``pillarize_auto`` (K1 on a batch of one) bit-equal to the plain
+``pillarize`` for every count form, and ``rotated_nms_pallas`` (K4) keeping
+the fixpoint NMS's set but for threshold-boundary pairs."""
 
 import numpy as np
 import pytest
@@ -1666,3 +1669,60 @@ def test_exported_full_config_launches_kernels(dev, tmp_path):
     assert all(_build.LAUNCHES[n] == 1 for n in serving), _build.LAUNCHES
     want = Detector(cfg, sd).predict_packed_batch(pts, ns)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["random", "one_cell", "budget", "empty"])
+def test_pillarize_auto_on_card_equals_plain(dev, case):
+    """``pillarize_auto`` on a CUDA tensor launches K1 once (a batch of
+    one) and equals the plain ``pillarize`` on the same tensors bit for
+    bit, for an int, a 0-d and a 1-element count; ``pillarize_batch_auto``
+    equals the plain ``pillarize_batch``."""
+    from tpu_pillars_torch.ops.voxelize import pillarize
+
+    cfg, make = CASES[case]
+    pts, ns = make(np.random.default_rng(3))
+    pts_d, ns_d = torch.from_numpy(pts).to(dev), torch.from_numpy(ns).to(dev)
+    for i in range(len(ns)):
+        want = pillarize(pts_d[i], int(ns[i]), cfg)
+        for n in (int(ns[i]), ns_d[i], ns_d[i:i + 1]):
+            _build.reset_launches()
+            got = emit.pillarize_auto(pts_d[i], n, cfg)
+            torch.cuda.synchronize()
+            assert _build.LAUNCHES["emit"] == 1
+            for name, g, w in zip(got._fields, got, want):
+                assert g.device.type == "cuda"
+                assert torch.equal(g, w), (i, name)
+    got = emit.pillarize_batch_auto(pts_d, ns_d, cfg)
+    want = pillarize_batch(pts_d, ns_d, cfg)
+    for name, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("with_classes", [False, True])
+def test_rotated_nms_pallas_on_card(dev, with_classes):
+    """``rotated_nms_pallas`` launches K4 once and keeps the set of the
+    fixpoint NMS (``ops.nms.rotated_nms``) on the card, but for boxes with
+    a pair whose float64 IoU lies within 1e-4 of the threshold."""
+    from tpu_pillars_torch.ops.nms import rotated_nms
+
+    rng = np.random.default_rng(8)
+    n = 512
+    boxes = _boxes(rng, 1, n, span=30.0)[0]
+    cls = rng.integers(0, 9, n)
+    boxes[:, 0] += cls * 4.0 * 120.0
+    valid = rng.uniform(size=n) > 0.1
+    b, v = torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev)
+    kw = ({"class_ids": torch.from_numpy(cls).to(dev),
+           "class_gap": 4.0 * 120.0} if with_classes else {})
+    _build.reset_launches()
+    keep = nms_overlap.rotated_nms_pallas(b, torch.ones(n, device=dev), v,
+                                          0.2, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["nms_overlap"] == 1 and keep.shape == (n,)
+    want = rotated_nms(b, torch.ones(n, device=dev), v, 0.2)
+    bad = (keep != want).nonzero()[:, 0].cpu()
+    if len(bad):
+        pair = iou.rotated_iou_bev(b[bad].double().cpu(),
+                                   b.double().cpu())
+        assert ((pair - 0.2).abs() < 1e-4).any()
+    assert 0 < int(keep.sum()) < int(v.sum())

@@ -139,7 +139,8 @@ def _imports(path):
 def test_port_imports_no_jax():
     files = [os.path.join(ROOT, "chip_smoke.py")] + [
         os.path.join(ROOT, "scripts", f"torch_{name}.py")
-        for name in ("quickstart", "visualize")]
+        for name in ("quickstart", "visualize", "rehearsal_dataset",
+                     "export_artifact", "gt_sampling_ablation")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "tpu_pillars_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

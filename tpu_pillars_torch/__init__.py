@@ -12,9 +12,12 @@ passes ``device="cpu"``.
 """
 
 from tpu_pillars_torch.config import (
-    ClassSpec, PillarsConfig, car_only_config, multisweep_config, tiny_config,
+    LYFT_CLASSES, ClassSpec, PillarsConfig, car_only_config,
+    multisweep_config, tiny_config,
 )
 from tpu_pillars_torch.detector import Detector, packed_to_boxes
+from tpu_pillars_torch.geometry.boxes import Box3D
 
-__all__ = ["ClassSpec", "PillarsConfig", "car_only_config",
-           "multisweep_config", "tiny_config", "Detector", "packed_to_boxes"]
+__all__ = ["ClassSpec", "LYFT_CLASSES", "PillarsConfig", "car_only_config",
+           "multisweep_config", "tiny_config", "Box3D", "Detector",
+           "packed_to_boxes"]

@@ -21,7 +21,13 @@ default). :func:`build_canvas_fn`, :func:`build_model_fn`,
 :func:`build_postprocess_fn` and :func:`build_forward_fn` are the stages as
 plain functions over a loaded ``PointPillars``; ``Detector`` runs stage 1
 through :func:`build_model_fn` and stage 2 through
-:func:`build_postprocess_fn`.
+:func:`build_postprocess_fn`. Each takes a batch, (B, M, F) points and (B,)
+counts, or one sweep, (M, F) points and a scalar count; one sweep runs
+as a batch of one and comes back without the batch axis. So each of the
+port's functions is both JAX functions of its name:
+``build_canvas_fn`` and ``build_canvas_fn_batched``, ``build_model_fn``
+and ``build_model_fn_batched``, ``build_forward_fn`` (the JAX package has
+no batched twin).
 Everything runs on ``device``; the only host transfers are the padded cloud
 in and one packed (D, 10) array out. The cloud crosses in ``wire_dtype``:
 f32, or one of the JAX package's two 2-byte wires (f16, or int16 fixed
@@ -94,16 +100,20 @@ def build_canvas_fn(model: PointPillars, config: PillarsConfig,
                     fused_frontend: Optional[bool] = None,
                     dtype=torch.float32):
     """Front half of stage 1: f(points (B, M, F), num_points (B,)) -> BEV
-    canvas (B, H, W, C) in ``dtype``. Fused front end, or the classic one
-    with K6 (``use_pallas_pfn``) or the plain PillarFeatureNet; see the
-    module docstring. The fused and K6 front ends compute f32 rows and K3
-    writes them into a ``dtype`` canvas; the plain PillarFeatureNet runs in
+    canvas (B, H, W, C) in ``dtype``; f(points (M, F), scalar count) -> (H,
+    W, C). Fused front end, or the classic one with K6
+    (``use_pallas_pfn``) or the plain PillarFeatureNet; see the module
+    docstring. The fused and K6 front ends compute f32 rows and K3 writes
+    them into a ``dtype`` canvas; the plain PillarFeatureNet runs in
     ``dtype``. The folded PFN weights are taken once, here."""
     fused = use_fused_frontend(config, use_pallas_pfn, fused_frontend)
     w, b = model.pfn.folded()
 
     @torch.no_grad()
     def canvas_fn(points, num_points):
+        if points.dim() == 2:                 # one sweep: a batch of one
+            n = torch.as_tensor(num_points, device=points.device)
+            return canvas_fn(points[None], n.reshape(1))[0]
         if fused:
             feats, pid_per, pmask = pillarize_pfn_fused(points, num_points,
                                                         w, b, config)
@@ -126,14 +136,17 @@ def build_model_fn(model: PointPillars, config: PillarsConfig,
                    dtype=torch.float32):
     """Stage 1: f(points (B, M, F), num_points (B,)) -> wire tensors (own
     (B, A), box_p (B, 7, A), dir_p (B, 2, A)), f32, the RPN and the head
-    computed in ``dtype``. Its two halves stay callable apart, as
-    ``.canvas`` (points -> canvas) and ``.wire`` (canvas -> wire tensors),
-    so that a caller can time them."""
+    computed in ``dtype``; one sweep, f(points (M, F), scalar count) ->
+    (A,), (7, A), (2, A). Its two halves stay callable apart, as
+    ``.canvas`` (points -> canvas) and ``.wire`` (canvas (B, H, W, C) or
+    (H, W, C) -> wire tensors), so that a caller can time them."""
     canvas_fn = build_canvas_fn(model, config, use_pallas_pfn=use_pallas_pfn,
                                 fused_frontend=fused_frontend, dtype=dtype)
 
     @torch.no_grad()
     def wire_fn(canvas):
+        if canvas.dim() == 3:
+            return tuple(t[0] for t in wire_fn(canvas[None]))
         return model.wire_head(model.features_from_canvas(canvas, dtype),
                                dtype)
 
@@ -148,7 +161,9 @@ def build_model_fn(model: PointPillars, config: PillarsConfig,
 def build_postprocess_fn(config: PillarsConfig, device=None,
                          nms_impl: str = "auto"):
     """Stage 2: f(own, box_p, dir_p) -> Detections, with the anchors made
-    once on ``device`` (None: the card, as :func:`resolve_device`).
+    once on ``device`` (None: the card, as :func:`resolve_device`); own
+    (B, A) gives (B, D, ...) detections, one sweep's own (A,) gives
+    Detections without the batch axis.
     nms_impl: "auto" (K4 on the card, the dense IoU on the CPU), resolved
     here, where an unknown name raises; "pallas" or "fixpoint" names one of
     the two (on the card "fixpoint" serves only as the check of K4)."""
@@ -161,6 +176,9 @@ def build_postprocess_fn(config: PillarsConfig, device=None,
 
     @torch.no_grad()
     def run_post(own, box_p, dir_p) -> Detections:
+        if own.dim() == 1:
+            return Detections(*(t[0] for t in run_post(
+                own[None], box_p[None], dir_p[None])))
         return postprocess_w(own, box_p, dir_p, anchors_t, anchor_cls_t,
                              config, nms_impl)
 
@@ -171,8 +189,9 @@ def build_forward_fn(model: PointPillars, config: PillarsConfig,
                      use_pallas_pfn: bool = True,
                      fused_frontend: Optional[bool] = None,
                      dtype=torch.float32):
-    """f(points (B, M, F), num_points (B,)) -> Detections: stage 1 (in
-    ``dtype``) then stage 2 on the model's device."""
+    """f(points (B, M, F), num_points (B,)) -> Detections (B, D, ...), or
+    one sweep, f(points (M, F), scalar count) -> Detections (D, ...): stage
+    1 (in ``dtype``) then stage 2 on the model's device."""
     stage1 = build_model_fn(model, config, use_pallas_pfn=use_pallas_pfn,
                             fused_frontend=fused_frontend, dtype=dtype)
     device = next(model.parameters()).device

@@ -28,6 +28,9 @@ two agree bit for bit: the sums are taken in rank order on both sides.
 The classic front end (``emit_pallas.py`` ``emit_pillar_table``,
 ``pillarize_batch_emit``) feeds K1 the raw sorted points and builds the
 decorated ``PillarBatch`` from its table: :func:`pillarize_batch_emit`.
+:func:`pillarize_auto` (one sweep) and :func:`pillarize_batch_auto` pick by
+the points' device, as the JAX functions pick by backend: K1 on a CUDA
+tensor, the plain ``ops.voxelize`` pillarizers on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ import torch
 from tpu_pillars_torch import _build
 from tpu_pillars_torch.config import PillarsConfig
 from tpu_pillars_torch.ops.voxelize import (
-    PillarBatch, decorate, sort_points_by_pillar,
+    PillarBatch, decorate, pillarize, pillarize_batch, sort_points_by_pillar,
 )
 
 META_ROWS = 8
@@ -213,3 +216,29 @@ def pillarize_batch_emit(points: torch.Tensor, num_points: torch.Tensor,
               * pillar_mask[..., None]).to(torch.int32)
     features = decorate(raw, mask, coords, config)
     return PillarBatch(features, mask, coords, pillar_mask)
+
+
+def pillarize_auto(points: torch.Tensor, num_points,
+                   config: PillarsConfig) -> PillarBatch:
+    """One sweep, points (M, F) and a 0-d or 1-element count -> PillarBatch
+    without a batch dim: on a CUDA tensor :func:`pillarize_batch_emit` (K1)
+    on a batch of one, row 0 returned; on a CPU tensor the plain
+    ``ops.voxelize.pillarize``. The two are bit-identical."""
+    if points.device.type != "cuda":
+        return pillarize(points, num_points, config)
+    n = torch.as_tensor(num_points, device=points.device).reshape(-1)
+    if n.numel() != 1:
+        raise ValueError(f"pillarize_auto takes one sweep's count, got "
+                         f"shape {tuple(n.shape)}")
+    batch = pillarize_batch_emit(points[None], n, config)
+    return PillarBatch(*(x[0] for x in batch))
+
+
+def pillarize_batch_auto(points: torch.Tensor, num_points: torch.Tensor,
+                         config: PillarsConfig) -> PillarBatch:
+    """(B, M, F) points, (B,) counts -> PillarBatch: K1
+    (:func:`pillarize_batch_emit`) on a CUDA tensor, the plain
+    ``ops.voxelize.pillarize_batch`` on a CPU tensor; bit-identical."""
+    if points.device.type != "cuda":
+        return pillarize_batch(points, num_points, config)
+    return pillarize_batch_emit(points, num_points, config)

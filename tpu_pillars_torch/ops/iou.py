@@ -145,6 +145,15 @@ def rotated_iou_bev(boxes1, boxes2):
     return _iou_broadcast(boxes1[:, None], boxes2[None, :])
 
 
+def rotated_iou_bev_paired(boxes1, boxes2):
+    """Row-paired rotated BEV IoU: boxes1 (..., G, 7) against boxes2 (...,
+    G, K, 7) -> (..., G, K), row g comparing boxes1[g] with boxes2[g, :]
+    (the banded target assigner's windows of anchors around each GT). The
+    circumradius gate and the clamps of :func:`rotated_iou_bev`, boxes1
+    first."""
+    return _iou_broadcast(boxes1[..., None, :], boxes2)
+
+
 def _iou_gated(boxes1, boxes2):
     """:func:`_iou_broadcast`'s values, the polygon clip computed only for
     the pairs that pass its circumradius gate: a pair beyond it reads

@@ -17,7 +17,8 @@ threshold.
 first (exact when classes cannot overlap — the class-aware shift of
 ``ops.postprocess`` guarantees that unless a decoded box out-spans the
 shift, which the ``class_gap`` guard checks), then runs the fixpoint sweep
-of ``ops.nms``.
+of ``ops.nms``. :func:`rotated_nms_pallas` is its one-sample form, with the
+JAX function's name and signature.
 """
 
 from __future__ import annotations
@@ -139,3 +140,18 @@ def rotated_nms_overlap(boxes, valid, iou_threshold: float, class_ids=None,
     over = overlap_matrix(boxes, iou_threshold)
     keep = nms_fixpoint(over, valid)
     return torch.gather(keep, 1, inv) if class_ids is not None else keep
+
+
+def rotated_nms_pallas(boxes, scores, valid, iou_threshold: float,
+                       class_ids=None, class_gap: float = 0.0):
+    """One sample of :func:`rotated_nms_overlap`, with the JAX signature:
+    boxes (K, 7) in descending score order, scores (K,) (unused: the order
+    is positional, as in ``ops.nms.rotated_nms``), valid (K,) bool,
+    class_ids (K,) int (optional, class-blocked order under the
+    ``class_gap`` guard) -> keep (K,) bool. K4 on a CUDA tensor."""
+    del scores
+    keep = rotated_nms_overlap(
+        boxes[None], valid[None], iou_threshold,
+        class_ids=None if class_ids is None else class_ids[None],
+        class_gap=class_gap)
+    return keep[0]

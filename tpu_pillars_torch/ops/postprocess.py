@@ -18,7 +18,8 @@ on the card "fixpoint" is only the check of K4, not a serving option.
 Top-k ties: ``lax.top_k`` breaks ties toward the lowest index, and trained
 weights saturate sigmoid scores to exactly 1.0, so ties are common. Every
 selection here takes the first k of a STABLE descending sort, which has
-the same rule; ``torch.topk`` has none.
+the same rule; ``torch.topk`` has none. :func:`top_k_two_stage` is the
+exact two-stage alternative, as in the JAX package not the default.
 """
 
 from __future__ import annotations
@@ -60,6 +61,30 @@ def top_k_stable(x, k: int):
     ties toward the lowest index (``lax.top_k``'s rule)."""
     values, indices = torch.sort(x, dim=-1, descending=True, stable=True)
     return values[..., :k], indices[..., :k]
+
+
+def top_k_two_stage(x, k: int, rows: int = 64):
+    """Exact top-k along the last dim of (..., n) via per-row partial
+    top-k: the n values cut into ``rows`` rows (the last padded with
+    -inf), each row's min(k, row length) largest kept, then the k largest
+    of the survivors. A row holds at most k of the global top k, so the
+    first stage loses nothing. Both stages are stable sorts
+    (:func:`top_k_stable`) and the survivors stay row-major, so among
+    equal values the candidate order rises with the original index: ties
+    go to the lowest index, ``lax.top_k``'s rule, bit for bit (as in
+    :func:`top_k_stable`, -0.0 and +0.0 count as equal, where ``lax.top_k``
+    puts +0.0 first; scores are never -0.0)."""
+    n = x.shape[-1]
+    m = -(-n // rows)
+    pad = rows * m - n
+    if pad:
+        x = torch.cat([x, x.new_full(x.shape[:-1] + (pad,), -math.inf)],
+                      dim=-1)
+    v, i = top_k_stable(x.reshape(x.shape[:-1] + (rows, m)), min(k, m))
+    flat_i = (torch.arange(rows, device=x.device)[:, None] * m + i).flatten(
+        -2)
+    v2, sel = top_k_stable(v.flatten(-2), k)
+    return v2, torch.gather(flat_i, -1, sel)
 
 
 def _top_candidates(own_logits, anchor_cls, config: PillarsConfig):

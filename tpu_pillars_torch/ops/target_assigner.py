@@ -1,10 +1,14 @@
 """Training targets: the container, the class grouping of the GT boxes
-and the dense assigner.
+and the dense assigners.
 
-Port of ``tpu_pillars/ops/target_assigner.py``, batched over a leading B:
-:func:`make_classwise_assigner` (the class-blocked dense assigner the JAX
-step runs as "dense"), in stock torch ops as the JAX package leaves it to
-XLA. The windowed assigner on the K5 kernel is ``ops/assign.py``.
+Port of ``tpu_pillars/ops/target_assigner.py``, in stock torch ops as the
+JAX package leaves it to XLA: :func:`assign_targets`, one sample's (A, G)
+IoU over every anchor and GT slot, in the flat anchor layout; and
+:func:`make_classwise_assigner`, batched over a leading B, each class's
+anchor block against its own GT (the assigner the JAX step runs as
+"dense"), optionally banded (``band_cells``: each GT against the window of
+anchors around its centre only). The windowed assigner on the K5 kernel is
+``ops/assign.py``.
 
 Rules (SECOND/PointPillars lineage): an anchor only matches GT boxes of its
 own class; IoU >= matched_iou -> positive, IoU < unmatched_iou -> negative,
@@ -23,7 +27,9 @@ import torch
 from tpu_pillars_torch.config import PillarsConfig
 from tpu_pillars_torch.ops.anchors import make_anchors
 from tpu_pillars_torch.ops.box_coder import encode_boxes
-from tpu_pillars_torch.ops.iou import rotated_iou_bev_colchunked
+from tpu_pillars_torch.ops.iou import (
+    rotated_iou_bev_colchunked, rotated_iou_bev_paired,
+)
 
 
 class Targets(NamedTuple):
@@ -115,20 +121,114 @@ def _classwise_consts(config: PillarsConfig, device):
     return _ClasswiseConsts(config, device)
 
 
+@torch.no_grad()
+def assign_targets(anchors, anchor_cls, gt_boxes, gt_cls, gt_valid,
+                   config: PillarsConfig, iou_chunk: int = 8192) -> Targets:
+    """One sample, every anchor against every GT slot: anchors (A, 7),
+    anchor_cls (A,) int; gt_boxes (G, 7), gt_cls (G,) int, gt_valid (G,)
+    bool, padded -> feature-major :class:`Targets` (no batch dim).
+
+    The (A, G) IoU, -1 where the classes differ or the slot is invalid:
+    ``rotated_iou_bev_chunked``'s values (GT first, ``iou_chunk`` anchors at
+    a time) through ``rotated_iou_bev_colchunked``, which clips only the
+    pairs that pass the circumradius gate (the rest are exactly 0 either
+    way, and at 720,000 anchors clipping every pair is launch-bound);
+    each anchor's best GT (ties to the lowest index); each valid GT with a
+    positive best IoU force-matches its best anchor (the highest such GT
+    index wins an anchor two claim); non-positives encode against
+    themselves."""
+    A = anchors.shape[0]
+    gt_cls = gt_cls.long()
+    anchor_cls = anchor_cls.long()
+    iou = rotated_iou_bev_colchunked(gt_boxes, anchors, chunk=iou_chunk).T
+    eligible = (anchor_cls[:, None] == gt_cls[None, :]) & gt_valid[None, :]
+    iou = torch.where(eligible, iou, -1.0)                        # (A, G)
+
+    best_gt = torch.argmax(iou, dim=1)                            # (A,)
+    best_iou = torch.gather(iou, 1, best_gt[:, None])[:, 0]
+    matched_thr, unmatched_thr = _thresholds(config, anchors.device)
+    pos = best_iou >= matched_thr[anchor_cls]
+    # anchors with no eligible GT at all (best_iou == -1) are negatives
+    neg = (((best_iou >= 0.0) & (best_iou < unmatched_thr[anchor_cls]))
+           | (best_iou < 0.0))
+
+    best_anchor = torch.argmax(iou, dim=0)                        # (G,)
+    gt_best_iou = torch.gather(iou, 0, best_anchor[None, :])[0]
+    del iou
+    claim = gt_valid & (gt_best_iou > 0.0)
+    forced, forced_gt = _force_match(best_anchor[None], claim[None], A)
+    forced, forced_gt = forced[0], forced_gt[0]
+    pos = pos | forced
+    neg = neg & ~pos
+    assigned = torch.where(forced & (forced_gt >= 0), forced_gt, best_gt)
+
+    # non-positive anchors encode against THEMSELVES (residual 0): see
+    # make_classwise_assigner
+    matched = torch.where(pos[:, None], gt_boxes[assigned], anchors)
+    reg = encode_boxes(matched, anchors)                          # (A, 7)
+    dirt = (matched[:, 6] > 0.0).to(torch.int32) * pos
+    onehot = (gt_cls[assigned][None, :] == torch.arange(
+        config.num_classes, device=anchors.device)[:, None])     # (C, A)
+    posf = pos.to(torch.float32)
+    return Targets(
+        cls_onehot=(onehot & pos[None, :]).to(torch.float32),
+        reg_targets=reg.T * posf[None, :],
+        dir_targets=dirt * pos,
+        cls_weights=(pos | neg).to(torch.float32),
+        reg_weights=posf,
+        num_pos=posf.sum(),
+    )
+
+
+def _banded_iou(config: PillarsConfig, anchors_c, gt_c, band: int):
+    """(C, Ac, 7) class-block anchors, (B, C, Gc, 7) GT -> (B, C, Gc, Ac)
+    IoU, computed only in each GT's (band x band x yaws) window of anchors
+    around its centre (``rotated_iou_bev_paired``) and 0 outside it. The
+    window origin is the JAX one: the centre's cell, truncated toward zero,
+    less band // 2, clipped into the grid."""
+    Hf, Wf = config.feature_h, config.feature_w
+    Y = len(config.anchor_yaws)
+    C, Ac, _ = anchors_c.shape
+    dev = gt_c.device
+    stride_x = config.voxel_x * config.head_stride
+    stride_y = config.voxel_y * config.head_stride
+    r0 = torch.clamp(((gt_c[..., 1] - config.y_min) / stride_y)
+                     .to(torch.int32) - band // 2, 0, Hf - band).long()
+    c0 = torch.clamp(((gt_c[..., 0] - config.x_min) / stride_x)
+                     .to(torch.int32) - band // 2, 0, Wf - band).long()
+    ar = torch.arange(band, device=dev)
+    rows = r0[..., None, None, None] + ar[:, None, None]
+    cols = c0[..., None, None, None] + ar[None, :, None]
+    yaws = torch.arange(Y, device=dev)
+    win = ((rows * Wf + cols) * Y + yaws).flatten(-3)         # (B,C,Gc,K)
+    cls = torch.arange(C, device=dev)[None, :, None, None]
+    iou_w = rotated_iou_bev_paired(gt_c, anchors_c[cls, win])  # (B,C,Gc,K)
+    dense = gt_c.new_zeros(gt_c.shape[:-1] + (Ac,))
+    return dense.scatter_(-1, win, iou_w)
+
+
 def make_classwise_assigner(config: PillarsConfig, max_gt_per_class: int = 16,
-                            iou_chunk: int = 16384):
+                            iou_chunk: int = 16384, band_cells: int = 0):
     """Returns assign(gt_boxes (B, G, 7), gt_cls (B, G), gt_valid (B, G))
     -> batched feature-major :class:`Targets` on the inputs' device: each
     class's anchor block against its own GT only
     (:func:`group_gt_by_class`, ``max_gt_per_class`` a class), a (B, C, Gc,
     Ac) IoU of ``iou_chunk`` anchors at a time; ineligible pairs (an
-    invalid slot) at -1, ties to the lowest index."""
+    invalid slot) at -1, ties to the lowest index.
+
+    band_cells > 0: BANDED assignment, as the JAX option: each GT's IoU is
+    computed only against the (band x band x yaws) window of anchors
+    around its centre (:func:`_banded_iou`, band = min(band_cells, feature
+    rows, feature columns)) and reads 0 outside it — exact for boxes whose
+    reach fits the band; the train step's ``assigner="banded"``. The
+    default 0 is the dense IoU."""
     C = config.num_classes
     Y = len(config.anchor_yaws)
     HW = config.feature_h * config.feature_w
     A = config.num_anchors
     Ac = HW * Y
     Gc = max_gt_per_class
+    band = min(band_cells, config.feature_h, config.feature_w)
 
     @torch.no_grad()
     def assign(gt_boxes, gt_cls, gt_valid) -> Targets:
@@ -137,8 +237,11 @@ def make_classwise_assigner(config: PillarsConfig, max_gt_per_class: int = 16,
         anchors_c = k.anchors_by_class                          # (C, Ac, 7)
         B = gt_boxes.shape[0]
         gt_c, gv_c = group_gt_by_class(gt_boxes, gt_cls, gt_valid, C, Gc)
-        iou = rotated_iou_bev_colchunked(gt_c, anchors_c[None],
-                                         chunk=iou_chunk)
+        if band > 0:
+            iou = _banded_iou(config, anchors_c, gt_c, band)
+        else:
+            iou = rotated_iou_bev_colchunked(gt_c, anchors_c[None],
+                                             chunk=iou_chunk)
         iou = torch.where(gv_c[..., None], iou, -1.0)          # (B,C,Gc,Ac)
         best_gt = torch.argmax(iou, dim=2)                      # (B, C, Ac)
         best_iou = torch.gather(iou, 2, best_gt[:, :, None])[:, :, 0]

@@ -19,6 +19,10 @@ Canonical semantics:
 
 The pillar id is ``floor((x - x_min) / voxel)`` in f32 with a correctly
 rounded division — on the card as on the CPU (no fast math anywhere).
+
+:func:`pillarize` is one sweep, :func:`pillarize_batch` a batch; both are
+plain PyTorch. ``ops.emit.pillarize_auto`` / ``pillarize_batch_auto`` run
+K1 on a CUDA tensor and these on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from tpu_pillars_torch.config import PillarsConfig
 
 
 class PillarBatch(NamedTuple):
-    """Static-shape pillarized sweeps, leading batch dim B.
+    """Static-shape pillarized sweeps, leading batch dim B (none for the
+    one sweep of :func:`pillarize`).
 
     features: (B, P, N, D) decorated per-point features, zero-padded
     mask:     (B, P, N) bool — valid point slots
@@ -76,6 +81,17 @@ def sort_points_by_pillar(points: torch.Tensor, num_points: torch.Tensor,
     F = points.shape[-1]
     pts = torch.gather(points, 1, order[..., None].expand(-1, -1, F))
     return gid, pts
+
+
+def pillarize(points: torch.Tensor, num_points,
+              config: PillarsConfig) -> PillarBatch:
+    """One sweep: points (M, F), num_points a scalar (int, or a 0-d or
+    1-element tensor) -> PillarBatch without a batch dim: row 0 of
+    :func:`pillarize_batch` on a batch of one (the JAX ``pillarize``'s
+    values; the batch's rows are independent)."""
+    n = torch.as_tensor(num_points, device=points.device).reshape(1)
+    return PillarBatch(*(x[0] for x in pillarize_batch(points[None], n,
+                                                       config)))
 
 
 def pillarize_batch(points: torch.Tensor, num_points: torch.Tensor,

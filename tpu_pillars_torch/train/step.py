@@ -9,8 +9,9 @@
             PillarFeatureNet on batch statistics (``models.pfn``)
          -> K3 scatter, row-gather backward (``ops.bev.scatter_to_bev_diff``)
          -> batch-statistics RPN -> feature-major head
-  GT     -> target assignment: K5 windowed (``ops.assign``, default) or the
-            dense class-blocked assigner (``ops.target_assigner``)
+  GT     -> target assignment: K5 windowed (``ops.assign``, default), the
+            dense class-blocked assigner or its banded form
+            (``ops.target_assigner``)
          -> focal / smooth-L1 / direction loss -> backward
          -> global-norm clip + AdamW (``train.state.AdamW``)
 
@@ -99,13 +100,20 @@ class _Phases:
         self.t = now
 
 
+# the banded assigner's window: the JAX package's choice, ~2x the largest
+# class's diagonal at the 1 m feature stride of PillarsConfig()
+BAND_CELLS = 48
+
+
 def make_assigner(config: PillarsConfig, assigner="windowed",
                   max_gt_per_class: int = 16, iou_chunk: int = 16384):
     """The JAX package's assigner names -> a batched assign(gt_boxes,
     gt_classes, gt_valid) -> Targets: "windowed" is K5
     (``ops.assign.make_windowed_assigner``), "dense" the class-blocked
     dense IoU (``ops.target_assigner.make_classwise_assigner``, chunks of
-    ``iou_chunk`` anchors). A callable is returned as it is. (The JAX
+    ``iou_chunk`` anchors), "banded" the same assigner with each GT's IoU
+    only in the ``BAND_CELLS`` x ``BAND_CELLS`` window of anchors around
+    its centre. A callable is returned as it is. (The JAX
     package's "auto" picks per backend; the port always runs on its card,
     where that is "windowed", so it has no "auto".)"""
     if callable(assigner):
@@ -115,7 +123,10 @@ def make_assigner(config: PillarsConfig, assigner="windowed",
     if assigner == "dense":
         return make_classwise_assigner(config, max_gt_per_class,
                                        iou_chunk=iou_chunk)
-    raise ValueError(f"assigner must be 'windowed', 'dense' or a "
+    if assigner == "banded":
+        return make_classwise_assigner(config, max_gt_per_class,
+                                       band_cells=BAND_CELLS)
+    raise ValueError(f"assigner must be 'windowed', 'dense', 'banded' or a "
                      f"callable; got {assigner!r}")
 
 
@@ -141,7 +152,7 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
 
     assigner: "windowed" (default) for K5, "dense" for the
     class-blocked dense assigner (its IoU ``iou_chunk`` anchors at a time),
-    or a callable (gt_boxes, gt_classes, gt_valid) -> batched Targets
+    "banded" for it in a window around each GT, or a callable (gt_boxes, gt_classes, gt_valid) -> batched Targets
     (:func:`make_assigner`).
 
     fused_frontend: True (default) for the fused front end, False for the
