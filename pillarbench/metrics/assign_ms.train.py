@@ -1,0 +1,7 @@
+"""Target assignment (K5 and its epilogue) a step, ms: the step's split."""
+
+from pillarbench.readers import span_mean
+
+
+def read(run):
+    return span_mean(run, "assign")
