@@ -2395,8 +2395,8 @@ def lyft_run(cfg, card, bf16_step_ms):
     print(f"Lyft run ({card}): main --data --full-size --bf16 --gt-sample 8 "
           f"--object-noise --cbgs 1.0 --workers 4, 6 steps at batch "
           f"{BATCH}: loss {steps[-1]['loss']:.4f}, "
-          f"{steps[-1]['steps_per_s']} steps/s (first step and loader "
-          f"included), held-out mAP {evals[0]['mAP']:.6f} on 8 samples; "
+          f"{steps[-1]['steps_per_s']} steps/s (the loader included, "
+          f"the first step left out), held-out mAP {evals[0]['mAP']:.6f} on 8 samples; "
           f"launches {launches}; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     verdict = ("the loader is slower, the card waits"

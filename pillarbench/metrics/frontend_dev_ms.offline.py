@@ -1,0 +1,8 @@
+"""The device ms of a batch's front end (K1-K3, ``Detector.canvas``),
+pipelined and unsynchronised: the program's span ``detector.frontend``."""
+
+from pillarbench.program_spans import per_unit
+
+
+def read(run):
+    return per_unit(run, "detector.predict", "detector.frontend", "device_ms")

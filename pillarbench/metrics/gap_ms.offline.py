@@ -1,0 +1,9 @@
+"""The card's idle ms between two batches as the program sees it: the gap of
+the program's unit span ``detector.predict``, from one batch's end event
+to the next one's start event."""
+
+from pillarbench.program_spans import gap_ms
+
+
+def read(run):
+    return gap_ms(run, "detector.predict")

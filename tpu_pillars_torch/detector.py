@@ -62,6 +62,7 @@ from tpu_pillars_torch.ops.pfn import pfn_fused
 from tpu_pillars_torch.ops.postprocess import (
     Detections, postprocess_w, resolve_nms_impl,
 )
+from tpu_pillars_torch.utils.profiling import span
 from tpu_pillars_torch.utils.truncation import TruncationStats
 
 
@@ -447,17 +448,34 @@ class Detector:
     def pad_points(self, points: np.ndarray):
         """:func:`pad_points` with this detector's wire (dtype, int16
         scales, buckets), host crop and ``self.truncation``."""
-        return pad_points(points, self.config, self.truncation,
-                          host_crop=self.host_crop, wire_np=self._wire_np,
-                          scales=self._wire_scales,
-                          buckets=self.wire_buckets)
+        with span("detector.pad"):
+            return pad_points(points, self.config, self.truncation,
+                              host_crop=self.host_crop,
+                              wire_np=self._wire_np,
+                              scales=self._wire_scales,
+                              buckets=self.wire_buckets)
 
     def predict_raw_batch(self, points_batch, num_points) -> Detections:
         """points_batch (B, M, F) already padded, in the wire dtype;
         num_points (B,)."""
-        points = self.dequant(self.upload(points_batch))
-        counts = self.upload(num_points).long()
-        return self.postprocess(*self._stage1(points, counts))
+        return self._predict(points_batch, num_points, pack=False)
+
+    def _predict(self, points_batch, num_points, pack: bool):
+        """One batch through both stages, as the spans ``detector.predict``
+        (a unit) and its four stages (``utils.profiling``); ``pack``: the
+        packed (B, D, 10) rows in place of ``Detections``."""
+        dev = self.device
+        with span("detector.predict", device=dev, unit=True):
+            with span("detector.upload", device=dev):
+                points = self.dequant(self.upload(points_batch))
+                counts = self.upload(num_points).long()
+            with span("detector.frontend", device=dev):
+                canvas = self.canvas(points, counts)
+            with span("detector.rpn_head", device=dev):
+                wire = self.wire(canvas)
+            with span("detector.postprocess", device=dev):
+                det = self.postprocess(*wire)
+                return pack_detections(det) if pack else det
 
     def predict_raw(self, points: np.ndarray) -> Detections:
         padded, n = self.pad_points(points)
@@ -467,8 +485,7 @@ class Detector:
     def predict_packed_batch(self, points_batch, num_points) -> torch.Tensor:
         """(B, M, F) padded clouds + (B,) counts -> (B, D, 10) device
         tensor [x, y, z, w, l, h, yaw, score, class, valid]."""
-        return pack_detections(self.predict_raw_batch(points_batch,
-                                                      num_points))
+        return self._predict(points_batch, num_points, pack=True)
 
     def predict_packed(self, points: np.ndarray) -> torch.Tensor:
         """One sweep -> (D, 10) device tensor (single transfer to fetch)."""
@@ -479,7 +496,7 @@ class Detector:
 
     def predict(self, points: np.ndarray, token: str = "",
                 lidar_to_global: Optional[Pose] = None) -> List[Box3D]:
-        packed = self.predict_packed(points).cpu().numpy()
+        packed = download(self.predict_packed(points))
         return packed_to_boxes(packed, self.config, token=token,
                                lidar_to_global=lidar_to_global)
 
@@ -503,17 +520,23 @@ class Detector:
                     yield self.predict_packed(points)
 
             for out in prefetch(launched(), size=depth):
-                yield packed_to_boxes(out.cpu().numpy(), self.config)
+                yield packed_to_boxes(download(out), self.config)
             return
         pending: "deque" = deque()
         for points in clouds:
             pending.append(self.predict_packed(points))
             if len(pending) > depth:
-                yield packed_to_boxes(pending.popleft().cpu().numpy(),
+                yield packed_to_boxes(download(pending.popleft()),
                                       self.config)
         while pending:
-            yield packed_to_boxes(pending.popleft().cpu().numpy(),
-                                  self.config)
+            yield packed_to_boxes(download(pending.popleft()), self.config)
+
+
+def download(packed: torch.Tensor) -> np.ndarray:
+    """Packed detections -> a host array, in the span
+    ``detector.download`` (the host's time blocked in the copy)."""
+    with span("detector.download"):
+        return packed.cpu().numpy()
 
 
 def pack_detections(det: Detections) -> torch.Tensor:

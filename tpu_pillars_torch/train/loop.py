@@ -59,6 +59,9 @@ from tpu_pillars_torch.train.state import (
 )
 from tpu_pillars_torch.train.step import batch_to_device, make_train_step
 from tpu_pillars_torch.utils.logging import JsonlLogger
+from tpu_pillars_torch.utils.profiling import span
+
+_END = object()     # the end of fit's batches
 
 
 def synthetic_batches(config: PillarsConfig, tcfg: TrainConfig, seed: int = 0,
@@ -93,7 +96,14 @@ def fit(state: TrainState, batches: Iterable, steps: int,
         heartbeat=None, guard=None, ema=None) -> TrainState:
     """Run ``steps`` optimizer steps on numpy ``batches``. step_fn defaults
     to ``make_train_step(config)``. Logs loss, cls, loc, dir, num_pos and
-    steps/s every ``log_every`` steps and after the last.
+    steps/s every ``log_every`` steps and after the last. The rate is over
+    the steps since the previous log line, or since the end of the first
+    step (read back for it), which leaves its warm-up out; a line of the
+    first step alone times that step. While ``utils.profiling`` records,
+    the spans ``fit.data`` (the wait for the next batch), ``fit.step`` (a
+    unit: the rest of an iteration), ``fit.upload`` (``batch_to_device``)
+    and ``fit.readback`` (the losses read on a logging step and on the
+    first) time it.
 
     ckpt_path: a full checkpoint (``train.checkpoint.save_checkpoint``)
     every ``ckpt_every`` steps (logged as 'checkpoint') and at the end.
@@ -119,7 +129,6 @@ def fit(state: TrainState, batches: Iterable, steps: int,
         step_fn = make_train_step(config)
     logger = logger or JsonlLogger(echo=False)
     device = next(state.model.parameters()).device
-    t0 = time.perf_counter()
     step0 = state.step
 
     def run_eval():
@@ -138,32 +147,51 @@ def fit(state: TrainState, batches: Iterable, steps: int,
             export_inference_checkpoint(path + ".ema", ema.swap_into(state),
                                         config=config)
 
+    batches = iter(batches)
+    t_log, i_log = time.perf_counter(), 0
     i = -1
-    for i, arrays in enumerate(batches):
+    while True:
+        with span("fit.data"):
+            arrays = next(batches, _END)
+        if arrays is _END:
+            break
+        i += 1
         if i >= steps:
             break
         if stop is not None and stop():
             logger.log("preempted", step=step0 + i)
             break
-        state, losses = step_fn(state, batch_to_device(arrays, device))
-        if ema is not None:
-            ema.update(state.model.parameters())
-        if heartbeat is not None:
-            heartbeat.beat(step0 + i + 1)
-        if (i + 1) % log_every == 0 or i + 1 == steps:
-            loss_val = float(losses.total)
-            logger.log(
-                "train_step", step=state.step, loss=loss_val,
-                cls=float(losses.cls), loc=float(losses.loc),
-                dir=float(losses.dir), num_pos=float(losses.num_pos),
-                steps_per_s=round((i + 1) / (time.perf_counter() - t0), 3))
-            if guard is not None:
-                guard.observe(state, loss_val)
-        if ckpt_path and (i + 1) % ckpt_every == 0:
-            save_all(ckpt_path)
-            logger.log("checkpoint", step=state.step, path=ckpt_path)
-        if eval_fn is not None and (i + 1) % eval_every == 0 and i + 1 < steps:
-            run_eval()
+        with span("fit.step", device=device, unit=True):
+            with span("fit.upload", device=device):
+                batch = batch_to_device(arrays, device)
+            state, losses = step_fn(state, batch)
+            if ema is not None:
+                ema.update(state.model.parameters())
+            if heartbeat is not None:
+                heartbeat.beat(step0 + i + 1)
+            logging = (i + 1) % log_every == 0 or i + 1 == steps
+            if logging or i == 0:
+                # the first step is read back too: its end starts the
+                # rate's clock, so that its warm-up is left out
+                with span("fit.readback"):
+                    read = {k: float(getattr(losses, k)) for k in
+                            ("total", "cls", "loc", "dir", "num_pos")}
+                now = time.perf_counter()
+                if logging:
+                    logger.log(
+                        "train_step", step=state.step, loss=read["total"],
+                        cls=read["cls"], loc=read["loc"], dir=read["dir"],
+                        num_pos=read["num_pos"], steps_per_s=round(
+                            (i + 1 - i_log) / (now - t_log), 3))
+                    if guard is not None:
+                        guard.observe(state, read["total"])
+                t_log, i_log = now, i + 1
+            if ckpt_path and (i + 1) % ckpt_every == 0:
+                save_all(ckpt_path)
+                logger.log("checkpoint", step=state.step, path=ckpt_path)
+            if (eval_fn is not None and (i + 1) % eval_every == 0
+                    and i + 1 < steps):
+                run_eval()
     if ckpt_path:
         save_all(ckpt_path)
     if i >= 0:

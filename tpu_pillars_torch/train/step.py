@@ -32,7 +32,6 @@ forward runs twice under remat.
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple, Optional
 
 import torch
@@ -51,6 +50,7 @@ from tpu_pillars_torch.ops.fused_pfn import (
 from tpu_pillars_torch.ops.losses import LossBreakdown, detection_loss_fm
 from tpu_pillars_torch.ops.target_assigner import make_classwise_assigner
 from tpu_pillars_torch.train.state import TrainState
+from tpu_pillars_torch.utils import profiling
 
 
 class TrainBatch(NamedTuple):
@@ -75,29 +75,49 @@ def batch_to_device(arrays, device) -> TrainBatch:
                         for a, dt in zip(arrays, dtypes)))
 
 
+# the recorder of every step's ``split=``, apart from the module's spans
+_SPLIT = profiling.Recorder()
+
+
 class _Phases:
-    """Host-clock split of a step, synchronising the card at each mark; a
-    no-op when no dict is given."""
+    """The step's phases, each from one ``begin`` to the next or to
+    ``end``. With a ``split`` dict: a host-clock split in ms, the card
+    synchronised at each boundary, on the recorder ``_SPLIT``. Without
+    one, while ``utils.profiling`` records: device spans ``step.<phase>``
+    that never synchronise. Otherwise nothing."""
 
     def __init__(self, out: Optional[dict], device):
         self.out = out
         self.device = device
-        self.t = None
+        self.own = None if out is None else _SPLIT
+        self.on = out is not None or profiling.recording()
+        self.open = self.name = None
         if out is not None:
             self._sync()
-            self.t = time.perf_counter()
 
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def mark(self, name: str) -> None:
-        if self.out is None:
+    def begin(self, name: str) -> None:
+        if not self.on:
             return
-        self._sync()
-        now = time.perf_counter()
-        self.out[name] = self.out.get(name, 0.0) + (now - self.t) * 1e3
-        self.t = now
+        self.end()
+        self.name = name
+        self.open = (profiling.span("step." + name, device=self.device)
+                     if self.own is None else self.own.span("step." + name))
+        self.open.__enter__()
+
+    def end(self) -> None:
+        if self.open is None:
+            return
+        if self.own is not None:
+            self._sync()
+        self.open.__exit__(None, None, None)
+        if self.own is not None:
+            self.out[self.name] = (self.out.get(self.name, 0.0)
+                                   + self.open.host_ms)
+        self.open = None
 
 
 # the banded assigner's window: the JAX package's choice, ~2x the largest
@@ -174,7 +194,8 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
 
     split: a dict that receives the step's synchronised host-clock split
     in ms (frontend, assign, forward, backward, allreduce with a mesh,
-    optimizer)."""
+    optimizer). Without one, while ``utils.profiling`` records, the same
+    phases are device spans ``step.<phase>`` that do not synchronise."""
     remat_pfn, remat_rpn = remat_flags(remat)
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"compute_dtype must be torch.float32 or "
@@ -210,12 +231,13 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
             return model.train_canvas_from_batch(pillars, remat_pfn,
                                                  compute_dtype, mesh)
 
-    def grads_of(model, batch: TrainBatch, phases: _Phases):
+    def grads_of(model, batch: TrainBatch, phases: _Phases, after: str):
+        """``after``: the phase that starts when the backward ends."""
         with torch.no_grad():
             inputs = inputs_of(batch)
-        phases.mark("frontend")
+        phases.begin("assign")
         targets = assign_b(batch.gt_boxes, batch.gt_classes, batch.gt_valid)
-        phases.mark("assign")
+        phases.begin("forward")
 
         with full_fp32():
             canvas, b_mean, b_var = canvas_of(model, inputs)
@@ -226,9 +248,9 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
             losses = detection_loss_fm(cls_fm, box_fm, dir_fm, targets,
                                        config)
             total = losses.total.mean()
-            phases.mark("forward")
+            phases.begin("backward")
             total.backward()
-        phases.mark("backward")
+        phases.begin(after)
         # the running statistics: once per (micro)batch, here and only here
         model.pfn.bn.update_running(b_mean.detach(), b_var.detach())
         for bn, (mean, var) in zip(model.rpn.batch_norms(), moments):
@@ -240,8 +262,15 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
 
     def train_step(state: TrainState, batch: TrainBatch,
                    split: Optional[dict] = None):
-        model = state.model
         phases = _Phases(split, batch.points.device)
+        phases.begin("frontend")
+        try:
+            return step_phases(state, batch, phases)
+        finally:
+            phases.end()
+
+    def step_phases(state: TrainState, batch: TrainBatch, phases: _Phases):
+        model = state.model
         for prm in model.parameters():
             prm.grad = None
         B = batch.points.shape[0]
@@ -252,7 +281,9 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
         sums = None
         for i in range(accum_steps):
             micro = TrainBatch(*(x[i * mb:(i + 1) * mb] for x in batch))
-            losses = grads_of(model, micro, phases)
+            after = ("frontend" if i + 1 < accum_steps else
+                     "optimizer" if mesh is None else "allreduce")
+            losses = grads_of(model, micro, phases, after)
             sums = losses if sums is None else LossBreakdown(
                 *(a + b for a, b in zip(sums, losses)))
         if accum_steps > 1:
@@ -268,10 +299,9 @@ def make_train_step(config: PillarsConfig, max_gt_per_class: int = 16,
         grads = None
         if mesh is not None:
             grads, sums = _reduce_over(mesh, model, sums)
-            phases.mark("allreduce")
+            phases.begin("optimizer")
         state.optimizer.step(grads)
         state.step += 1
-        phases.mark("optimizer")
         return state, sums
 
     return train_step
