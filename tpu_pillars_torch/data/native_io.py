@@ -4,8 +4,15 @@
 Wraps ``tpu_pillars_torch/native/pointcloud.cc`` via ctypes: one pass fuses
 the .bin read, the detection-range crop, the feature-column select and the
 static-budget padding (and, for multi-sweep, the rigid sweep -> keyframe
-transform and the dt column). This is a host loader, not a device kernel,
-so it keeps its numpy path, with the same semantics:
+transform and the dt column). :func:`crop_pad` is the same pass over a cloud
+already in memory, which ``detector.pad_points`` takes whenever the library
+loads: it keeps a row when ``x >= x0 and x < x1 and y >= y0 and y < y1 and
+z >= z0 and z <= z1`` (so a NaN or infinite coordinate drops it, as the numpy
+mask of those comparisons does), and quantises the int16 wire in the same
+pass as numpy does: value / scale in f32, rounded half to even
+(``np.round``), clipped to +-32767, cast (NaN to 0, numpy's cast on x86-64).
+This is a host loader, not a device kernel, so it keeps its numpy path, with
+the same semantics:
 
 * ``use_native=None``: the native library when it builds, else numpy;
 * ``use_native=True``: the native library, or ``RuntimeError`` carrying
@@ -92,6 +99,12 @@ def _build() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
         ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
     ]
+    lib.crop_pad.restype = ctypes.c_int64
+    lib.crop_pad.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.POINTER(ctypes.c_float), ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_float, ctypes.POINTER(ctypes.c_float),
+    ]
     return lib
 
 
@@ -172,6 +185,40 @@ def load_points_padded(path: str, config: PillarsConfig,
     out[: len(kept)] = kept
     IO_TRUNCATION.record(int(m.sum()), len(kept), label=path)
     return out, np.int32(len(kept))
+
+
+def crop_pad(points: np.ndarray, n_take: int, crop: Optional[np.ndarray],
+             max_points: int, pad: float,
+             scales: Optional[np.ndarray] = None):
+    """In-memory cloud (N, >= n_take) -> ((max_points, n_take) padded,
+    in-range count) in one native pass; the count may exceed max_points,
+    and only the first max_points in-range rows are kept.
+
+    crop: [x_min, x_max, y_min, y_max, z_min, z_max] (float32), or None to
+    keep every row. scales: None for a float32 array padded with ``pad``;
+    per-column scales for the int16 fixed-point wire, padded with 32767.
+    Raises ``RuntimeError`` when the library is unavailable."""
+    lib = _library(True)
+    points = np.ascontiguousarray(points, dtype=np.float32)
+    if points.ndim != 2 or points.shape[1] < n_take:
+        raise ValueError(f"points of shape {points.shape} have fewer than "
+                         f"{n_take} columns")
+    out = np.empty((max_points, n_take),
+                   np.float32 if scales is None else np.int16)
+    if crop is not None:
+        crop = np.ascontiguousarray(crop, dtype=np.float32)
+        if crop.shape != (6,):
+            raise ValueError(f"crop has shape {crop.shape}, not (6,)")
+    if scales is not None:
+        scales = np.ascontiguousarray(scales, dtype=np.float32)
+        if scales.shape != (n_take,):
+            raise ValueError(f"scales have shape {scales.shape}, not "
+                             f"({n_take},)")
+    in_range = lib.crop_pad(
+        _fptr(points), len(points), points.shape[1], n_take,
+        None if crop is None else _fptr(crop), out.ctypes.data, max_points,
+        pad, None if scales is None else _fptr(scales))
+    return out, int(in_range)
 
 
 def _transform(pts: np.ndarray, rt: np.ndarray) -> np.ndarray:

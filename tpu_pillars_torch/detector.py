@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from tpu_pillars_torch.config import PillarsConfig
+from tpu_pillars_torch.data import native_io
 from tpu_pillars_torch.geometry.boxes import Box3D
 from tpu_pillars_torch.geometry.transforms import Pose
 from tpu_pillars_torch.models.pointpillars import PointPillars
@@ -62,7 +63,7 @@ from tpu_pillars_torch.ops.pfn import pfn_fused
 from tpu_pillars_torch.ops.postprocess import (
     Detections, postprocess_w, resolve_nms_impl,
 )
-from tpu_pillars_torch.utils.profiling import span
+from tpu_pillars_torch.utils.profiling import count, span
 from tpu_pillars_torch.utils.truncation import TruncationStats
 
 
@@ -234,7 +235,11 @@ def pad_points(points: np.ndarray, config: PillarsConfig,
     host_crop: drop points outside the detection range first. M is
     config.max_points, or the smallest of ``buckets`` that holds the cloud.
     Clouds beyond the budget keep their FIRST max_points (in-range) rows;
-    the drop is counted in ``truncation`` and warned."""
+    the drop is counted in ``truncation`` and warned.
+
+    One native pass (``data.native_io.crop_pad``) when its library loads,
+    else numpy; both give the same bytes. While tracing is on, the counter
+    ``detector.pad_native`` or ``detector.pad_numpy`` counts the sweep."""
     cfg = config
     wire_np = np.dtype(wire_np)
     f_expect = cfg.num_input_features
@@ -246,33 +251,58 @@ def pad_points(points: np.ndarray, config: PillarsConfig,
             f"points have {points.shape[1]} feature columns; config "
             f"needs {f_expect} (x, y, z, intensity"
             f"{', dt' if cfg.num_sweeps > 1 else ''})")
-    if host_crop and len(points):
+    if scales is not None:
+        # both paths divide in float32
+        scales = np.asarray(scales, dtype=np.float32)
+    # pad with a finite out-of-range sentinel (f16's max is ~65504); the
+    # int16 wire pads with 32767, which dequantizes out of the range
+    pad = 1e6 if wire_np.itemsize >= 4 else 3e4
+    crop = None
+    if host_crop:
         # a strict SUPERSET of the device validity predicate: the
         # grid-derived upper bound plus one voxel of float margin
-        x, y, z = points[:, 0], points[:, 1], points[:, 2]
-        xh = cfg.x_min + (cfg.grid_w + 1) * cfg.voxel_x
-        yh = cfg.y_min + (cfg.grid_h + 1) * cfg.voxel_y
-        keep = ((x >= cfg.x_min) & (x < xh)
-                & (y >= cfg.y_min) & (y < yh)
-                & (z >= cfg.z_min) & (z <= cfg.z_max))
-        points = points[keep]
-    n = min(len(points), cfg.max_points)
-    m = cfg.max_points
-    if buckets is not None:
-        m = next(b for b in buckets if b >= n)
-    if scales is not None:
-        # int16 fixed point: per-channel quantize; 32767 is the pad
-        # sentinel (it dequantizes out of the detection range)
-        out = np.full((m, f_expect), 32767, dtype=np.int16)
-        q = np.round(points[:n, :f_expect] / scales)
-        out[:n] = np.clip(q, -32767, 32767).astype(np.int16)
+        crop = np.asarray(
+            [cfg.x_min, cfg.x_min + (cfg.grid_w + 1) * cfg.voxel_x,
+             cfg.y_min, cfg.y_min + (cfg.grid_h + 1) * cfg.voxel_y,
+             cfg.z_min, cfg.z_max], dtype=np.float32)
+    if native_io.native_available():
+        out, in_range = native_io.crop_pad(points, f_expect, crop,
+                                           cfg.max_points, pad, scales)
+        count("detector.pad_native")
     else:
-        # pad with a finite out-of-range sentinel (f16's max is ~65504)
-        pad = 1e6 if wire_np.itemsize >= 4 else 3e4
-        out = np.full((m, f_expect), pad, dtype=wire_np)
-        out[:n] = points[:n, :f_expect]
-    truncation.record(len(points), n, label="pad_points")
+        out, in_range = _crop_pad_numpy(points, f_expect, crop,
+                                        cfg.max_points, pad, scales)
+        count("detector.pad_numpy")
+    n = min(in_range, cfg.max_points)
+    if buckets is not None:
+        out = out[:next(b for b in buckets if b >= n)]
+    if scales is None and out.dtype != wire_np:
+        out = out.astype(wire_np)
+    truncation.record(in_range, n, label="pad_points")
     return out, np.int32(n)
+
+
+def _crop_pad_numpy(points: np.ndarray, n_take: int,
+                    crop: Optional[np.ndarray], max_points: int, pad: float,
+                    scales: Optional[np.ndarray]):
+    """:func:`native_io.crop_pad` in numpy, for a host where its library
+    does not build: the same arguments, bytes and in-range count."""
+    if crop is not None and len(points):
+        x, y, z = points[:, 0], points[:, 1], points[:, 2]
+        keep = ((x >= crop[0]) & (x < crop[1])
+                & (y >= crop[2]) & (y < crop[3])
+                & (z >= crop[4]) & (z <= crop[5]))
+        points = points[keep]
+    n = min(len(points), max_points)
+    if scales is None:
+        out = np.full((max_points, n_take), pad, dtype=np.float32)
+        out[:n] = points[:n, :n_take]
+    else:
+        # int16 fixed point: per-channel quantize
+        out = np.full((max_points, n_take), 32767, dtype=np.int16)
+        q = np.round(points[:n, :n_take] / scales)
+        out[:n] = np.clip(q, -32767, 32767).astype(np.int16)
+    return out, len(points)
 
 
 class Detector:
