@@ -38,6 +38,15 @@ line:
      to K3's canvas and to ``index_copy_``, its tile ranges equal to theirs.
      Times each (CUDA events, median), with its bound and, where one
      PyTorch call computes the same function, that call's time.
+     2b. CenterPoint-PP (``centerpoint_pp_config()``, seeded weights) on a
+     batch of 8 10-sweep clouds of 280,000 points at its published front
+     end (512 x 512 at 0.2 m, 60,000 pillars, 20 points): K1 and K3
+     bit-equal to their plain versions; K2's two-layer instance
+     ``fused_pfn2`` launched once (the counts reset before it) and
+     bit-equal to its plain version, timed, its bound from the batch's
+     counts; ``Detector`` ``predict_packed_batch`` on the batch with K1,
+     ``fused_pfn2``, K3 and K4 launched once each and the one-layer K2
+     not, finite (8, 498, 12) rows with boxes, and its time a batch.
   3. The serving path: ``Detector.from_checkpoint`` on the committed
      trained checkpoint; ``predict`` on the 8 golden scenes of
      ``tests/data/torch_golden_synth4k.npz`` (written by
@@ -222,7 +231,8 @@ The line before the last is a JSON object ``{"kernels": [...]}``, each
 kernel with its launches on the path that runs it (serving: K1-K4, classic
 serving: K6, drop-ins: K8-K10, K11 and K7, training: K5; K3's f32 -> bf16
 instance: bf16 serving, its bf16 -> bf16 instance: bf16 training, each its
-own entry), under ``dp_launches`` each rank's launches in phase 6 and
+own entry; K2's two-layer instance: CenterPoint's serving batch of 2b),
+under ``dp_launches`` each rank's launches in phase 6 and
 under ``phase_launches`` those of phases 3i, 3j and 4f;
 the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -566,6 +576,10 @@ def main() -> None:
     rows["iou_tiled"] = iou_tiled_row(cands[0])
     classic_rows(cfg, points, counts, w_pfn, b_pfn, rows)
 
+    # ---- phase 2b: CenterPoint-PP's front end (K1, K2's two-layer
+    # instance, K3 at 512 x 512) and its Detector
+    rows["fused_pfn2"], center_launches = centerpoint_phase(card)
+
     # ---- phase 3: the serving path
     golden = np.load(GOLDEN)
     _build.reset_launches()
@@ -655,6 +669,8 @@ def main() -> None:
     # the main path of this slice for K5 is training; K1-K4 keep the
     # serving path's counts
     launches["assign"] = train_launches["assign"]
+    # K2's two-layer instance runs on CenterPoint's serving path (2b)
+    launches["fused_pfn2"] = center_launches["fused_pfn2"]
 
     # ---- phase 4b: resume, EMA and the elastic hooks at full width
     resume_phase(cfg, card)
@@ -696,10 +712,13 @@ def main() -> None:
                 "stream_pfn": "tpu_pillars/ops/stream_pfn.py:128",
                 "iou_tiled": "tpu_pillars/ops/iou_pallas.py:88",
                 "bev_scatter_f32_bf16": "tpu_pillars/ops/bev_pallas.py:330",
-                "bev_scatter_bf16": "tpu_pillars/ops/bev_pallas.py:330"}
-    # K3's instances live in its one source
+                "bev_scatter_bf16": "tpu_pillars/ops/bev_pallas.py:330",
+                "fused_pfn2": "none (CenterPoint's two-layer PFN; the JAX "
+                              "package's PFN has one layer)"}
+    # K3's and K2's instances live in their kernel's one source
     sources = {"bev_scatter_f32_bf16": "bev_scatter",
-               "bev_scatter_bf16": "bev_scatter"}
+               "bev_scatter_bf16": "bev_scatter",
+               "fused_pfn2": "fused_pfn"}
     kernels = []
     for name, r in rows.items():
         b_ms, b_by = r["bound"]
@@ -2619,6 +2638,150 @@ def resume_phase(cfg, card):
           f"{time.perf_counter() - t_phase:.1f} s")
     del restored, ema
     torch.cuda.empty_cache()
+
+
+def center_clouds(rng, n_clouds: int, sweeps: int = 10,
+                  per_sweep: int = 28_000):
+    """10-sweep clouds as the CenterPoint cell feeds them: ``sweeps`` lidar
+    sweeps (:func:`lidar_batch`) a cloud, each with its dt (0.05 s a
+    sweep) as the fifth column. -> list of (sweeps * per_sweep, 5) f32."""
+    import numpy as np
+
+    out = []
+    for _ in range(n_clouds):
+        s = lidar_batch(rng, None, sweeps, per_sweep)
+        dt = np.repeat(np.arange(sweeps, dtype=np.float32) * 0.05,
+                       per_sweep)
+        out.append(np.concatenate([s.reshape(-1, 4), dt[:, None]], axis=1))
+    return out
+
+
+def centerpoint_phase(card):
+    """CenterPoint-PP at its published front end (512 x 512 at 0.2 m,
+    60,000 pillars, 20 points) on a batch of 8 10-sweep clouds, with
+    seeded weights: K1 bit-equal to its plain version; K2's two-layer
+    instance ``fused_pfn2`` on K1's table, launched once after a reset of
+    the counts and bit-equal to its plain version, timed against it, its
+    bound from this batch's counts (``pillarbench/roofline/centerpoint.
+    py``'s reckoning); K3 bit-equal to its plain version; then
+    ``Detector(centerpoint_pp_config())`` ``predict_packed_batch`` on the
+    batch with its own launch counts (K1, K2's two-layer instance, K3, K4
+    once each), (8, 498, 12) finite rows, boxes found, and its time a
+    batch. -> (the kernels row of ``fused_pfn2``, the detector's
+    launches)."""
+    import numpy as np
+    import torch
+
+    from tpu_pillars_torch import _build
+    from tpu_pillars_torch.config import centerpoint_pp_config
+    from tpu_pillars_torch.detector import Detector
+    from tpu_pillars_torch.models.centerpoint import CenterPoint
+    from tpu_pillars_torch.ops import bev, emit, fused_pfn
+    from tpu_pillars_torch.ops.voxelize import sort_points_by_pillar
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_center_util import center_state_dict
+
+    t_phase = time.perf_counter()
+    cfg = centerpoint_pp_config()
+    dev = torch.device("cuda")
+    sd = center_state_dict(cfg, SEED)
+    det = Detector(cfg, sd)
+    clouds = center_clouds(np.random.default_rng(SEED), BATCH)
+    padded = [det.pad_points(c) for c in clouds]
+    points = torch.from_numpy(np.stack([p for p, _ in padded])).to(dev)
+    counts = torch.from_numpy(np.asarray([n for _, n in padded])).to(dev)
+
+    P, N = cfg.max_pillars, cfg.max_points_per_pillar
+    F, HW = cfg.num_input_features, cfg.grid_h * cfg.grid_w
+    gid, pts = sort_points_by_pillar(points, counts.long(), cfg)
+    pts = fused_pfn.center_points(gid, pts, cfg)
+    args1 = (gid, pts, N, P, HW)
+    table, meta = emit.emit_table(*args1)
+    table_p, meta_p = emit.emit_table_plain(*args1)
+    if not (torch.equal(table, table_p) and torch.equal(meta, meta_p)):
+        fail("K1 emit differs from its plain version at CenterPoint's grid")
+    del table_p, meta_p
+    cnt = meta.reshape(BATCH, 8, P)[:, 0]
+    kept_pts = float(cnt.sum())
+    n_pillars = int((cnt > 0).sum())
+    short = int(((cnt > 0) & (cnt < N)).sum())
+
+    model = CenterPoint(cfg)
+    model.load_state_dict(sd)
+    weights = [t.to(dev) for t in model.pfn.folded(cfg)]
+    args2 = (table, meta, *weights, cfg)
+    _build.reset_launches()
+    feats, pid, cnt2 = fused_pfn.pfn2_from_table(*args2)
+    torch.cuda.synchronize()
+    k2_launches = _build.LAUNCHES["fused_pfn2"]
+    if k2_launches != 1:
+        fail(f"fused_pfn2 launched {k2_launches} times for one call")
+    feats_p, pid_p, cnt_p = fused_pfn.pfn2_from_table_plain(*args2)
+    if not (torch.equal(feats, feats_p) and torch.equal(pid, pid_p)
+            and torch.equal(cnt2, cnt_p)):
+        fail(f"fused_pfn2 differs from its plain version: max |d| "
+             f"{(feats - feats_p).abs().max().item():.3e}")
+    del feats_p, pid_p, cnt_p
+    C1, C2 = weights[0].shape[1], weights[2].shape[1]
+    # pillarbench/roofline/centerpoint.k2_two_layer: the kept rows and five
+    # meta rows read, features, ids and counts written; per kept point
+    # layer 1 and layer 2 on h, per pillar layer 2 on the max and the bias
+    row = dict(
+        err=0.0,
+        ms=cuda_ms(lambda: fused_pfn.pfn2_from_table(*args2), 20),
+        plain_ms=cuda_ms(lambda: fused_pfn.pfn2_from_table_plain(*args2), 1,
+                         reps=3),
+        library_ms=None,
+        bound=bound(kept_pts * F * 4 + 5 * BATCH * P * 4
+                    + BATCH * P * C2 * 4 + 2 * BATCH * P * 4,
+                    kept_pts * 2 * (F * C1 + C1 * C2)
+                    + BATCH * P * (2 * C1 * C2 + 14 * C1)))
+    print(f"2b ({card}): {int(kept_pts)} kept points, {n_pillars} live "
+          f"pillars of {BATCH * P} ({short} with padded slots) over {BATCH} "
+          f"10-sweep clouds; fused_pfn2 bit-equal to its plain version, "
+          f"{k2_launches} launch a call; {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, bound {row['bound'][0]:.4f} ms "
+          f"({row['bound'][1]})")
+
+    mask = cnt2 > 0.0
+    canvas = bev.scatter_to_bev(feats, pid, mask, cfg)
+    if not torch.equal(canvas, bev.scatter_to_bev_plain(feats, pid, mask,
+                                                        cfg)):
+        fail("K3 differs from its plain version at CenterPoint's grid")
+    del canvas, table, meta, feats
+    torch.cuda.empty_cache()
+
+    _build.reset_launches()
+    out = det.predict_packed_batch(points, counts)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    print(f"2b: launches of CenterPoint's predict_packed_batch: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    for name in ("emit", "fused_pfn2", "bev_scatter", "nms_overlap"):
+        if launches[name] != 1:
+            fail(f"{name} launched {launches[name]} times in CenterPoint's "
+                 f"batch call")
+    if launches["fused_pfn"]:
+        fail("the one-layer K2 launched on CenterPoint's path")
+    out = out.cpu().numpy()
+    if out.shape != (BATCH, cfg.max_detections, 12) or \
+            not np.isfinite(out).all() or out[..., 9].sum() == 0:
+        fail(f"CenterPoint's batch output {out.shape}: not finite (B, 498, "
+             f"12) rows with detections")
+    batch_ms = cuda_ms(lambda: det.predict_packed_batch(points, counts), 2,
+                       reps=3)
+    print(f"2b: CenterPoint predict_packed_batch {batch_ms:.2f} ms a batch "
+          f"of {BATCH}, {int(out[..., 9].sum())} boxes; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    print(json.dumps({"fused_pfn2": {
+        "launches": k2_launches, "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
+        "detector_launches": {k: launches[k] for k in (
+            "emit", "fused_pfn2", "bev_scatter", "nms_overlap")}}}))
+    del det, points, counts
+    torch.cuda.empty_cache()
+    return row, launches
 
 
 def index_copy_scatter(feats, pid, mask, hw):

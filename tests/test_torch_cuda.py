@@ -1726,3 +1726,163 @@ def test_rotated_nms_pallas_on_card(dev, with_classes):
                                    b.double().cpu())
         assert ((pair - 0.2).abs() < 1e-4).any()
     assert 0 < int(keep.sum()) < int(v.sum())
+
+
+# ---- CenterPoint: K2's two-layer instance, the pillar id, the detector
+
+def _pfn2_weights(rng, f, c1, c2, dev):
+    w1_eff = (rng.normal(size=(f, c1)) * 0.3).astype(np.float32)
+    w1_dec = rng.normal(size=(8, c1)).astype(np.float32)
+    w1_dec[6:] = 0.0
+    w2a = (rng.normal(size=(c1, c2)) / np.sqrt(c1)).astype(np.float32)
+    w2b = (rng.normal(size=(c1, c2)) / np.sqrt(c1)).astype(np.float32)
+    b2 = rng.normal(size=(c2,)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (w1_eff, w1_dec, w2a, w2b,
+                                                   b2)]
+
+
+def _fused_pfn2_check(dev, cfg, table, meta, weights):
+    """K2's two-layer instance into memory that held NaN, one launch:
+    bit-equal to its plain version."""
+    B, P = meta.shape[0] // 8, meta.shape[1]
+    C2 = weights[2].shape[1]
+    nan = float("nan")
+    ptrs = _poison_all([((B, P, C2), torch.float32, nan),
+                        ((B, P), torch.int32, -7),
+                        ((B, P), torch.float32, nan)], dev)
+    before = _build.LAUNCHES["fused_pfn2"]
+    got = fused_pfn.pfn2_from_table(table, meta, *weights, cfg)
+    assert _build.LAUNCHES["fused_pfn2"] == before + 1
+    assert [t.data_ptr() for t in got] == ptrs
+    want = fused_pfn.pfn2_from_table_plain(table, meta, *weights, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert torch.equal(a, b)
+    return got
+
+
+# (F, C1, C2, N, pillars a sample): the published widths (5, 32, 64, 20),
+# lanes with no channel (C1 = 24, C2 = 40), one channel a lane (C2 = 32),
+# N = 32, and a pillar count no multiple of the block's 4 warps
+FUSED_PFN2_SHAPES = {
+    "published": (5, 32, 64, 20, 1001),
+    "narrow": (5, 24, 40, 20, 333),
+    "c2_32_n32": (4, 16, 32, 32, 257),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_PFN2_SHAPES))
+def test_fused_pfn2_kernel_shapes_nan_tails(dev, case):
+    """Counts of 0, 1 and N interleaved, NaN past every count (never read),
+    into memory that held NaN: bit-equal to the plain version."""
+    f, c1, c2, n, p = FUSED_PFN2_SHAPES[case]
+    cfg = tconfig.tiny_config(max_points_per_pillar=n)
+    rng = np.random.default_rng(c1)
+    table, meta, _, _ = [t.to(dev) for t in _fused_pfn_table(
+        rng, cfg, 3, p, f, 8)]
+    feats, pid, cnt = _fused_pfn2_check(
+        dev, cfg, table, meta, _pfn2_weights(rng, f, c1, c2, dev))
+    assert torch.isfinite(feats).all()
+    assert not feats[cnt == 0].any()
+    assert (cnt == 0).any() and (cnt == n).any() and (cnt == 1).any()
+
+
+def test_fused_pfn2_kernel_on_the_centerpoint_front_end(dev):
+    """Sorted, cell-centred 10-sweep clouds at the published grid and
+    widths through K1, then K2's two-layer instance on the folded weights
+    of a seeded model: bit-equal to the plain version."""
+    from torch_center_util import center_cloud, center_state_dict
+
+    cfg = tconfig.centerpoint_pp_config()
+    rng = np.random.default_rng(3)
+    pts = np.full((2, cfg.max_points, 5), 1e6, np.float32)
+    ns = np.asarray([250_000, 90_000], np.int32)
+    for b, n in enumerate(ns):
+        pts[b, :n] = center_cloud(rng, cfg, int(n))
+    gid, p = sort_points_by_pillar(torch.from_numpy(pts).to(dev),
+                                   torch.from_numpy(ns).to(dev), cfg)
+    table, meta = emit.emit_table(gid, fused_pfn.center_points(gid, p, cfg),
+                                  cfg.max_points_per_pillar, cfg.max_pillars,
+                                  cfg.grid_h * cfg.grid_w)
+    from tpu_pillars_torch.models.centerpoint import CenterPoint
+
+    model = CenterPoint(cfg)
+    model.load_state_dict(center_state_dict(cfg, 4))
+    weights = [t.to(dev) for t in model.pfn.folded(cfg)]
+    _fused_pfn2_check(dev, cfg, table, meta, weights)
+
+
+def test_fused_pfn2_entry_refuses_wide_layers(dev):
+    """C1 = 33 passes the wrapper's checks and is refused by the C entry."""
+    cfg = tconfig.tiny_config(max_points_per_pillar=8)
+    rng = np.random.default_rng(5)
+    table, meta, _, _ = [t.to(dev) for t in _fused_pfn_table(
+        rng, cfg, 1, 64, 5, 8)]
+    before = _build.LAUNCHES["fused_pfn2"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_pfn.pfn2_from_table(table, meta,
+                                  *_pfn2_weights(rng, 5, 33, 64, dev), cfg)
+    assert _build.LAUNCHES["fused_pfn2"] == before
+
+
+def test_pillar_ids_divide_correctly_on_card(dev):
+    """At 0.2 m pillars, points on, and one ulp either side of, every cell
+    boundary: the card's pillar id is floor((x - x_min) / voxel) with a
+    correctly rounded f32 division, as numpy computes it on the host."""
+    from tpu_pillars_torch.ops.voxelize import pillar_ids
+
+    cfg = tconfig.centerpoint_pp_config()
+    k = np.arange(cfg.grid_w + 1, dtype=np.float64)
+    edge = (cfg.x_min + k * cfg.voxel_x).astype(np.float32)
+    xs = np.concatenate([edge, np.nextafter(edge, np.float32(-1e9)),
+                         np.nextafter(edge, np.float32(1e9))])
+    m = len(xs)
+    pts = np.zeros((1, m, 5), np.float32)
+    pts[0, :, 0] = xs
+    pts[0, :, 1] = xs[::-1]
+    got = pillar_ids(torch.from_numpy(pts).to(dev),
+                     torch.tensor([m], device=dev), cfg).cpu().numpy()[0]
+    col = np.floor((xs - np.float32(cfg.x_min)) / np.float32(cfg.voxel_x))
+    row = np.floor((xs[::-1] - np.float32(cfg.y_min))
+                   / np.float32(cfg.voxel_y))
+    ok = (col >= 0) & (col < cfg.grid_w) & (row >= 0) & (row < cfg.grid_h)
+    want = np.where(ok, row * cfg.grid_w + col, cfg.grid_h * cfg.grid_w)
+    np.testing.assert_array_equal(got, want.astype(np.int32))
+    cpu = pillar_ids(torch.from_numpy(pts), torch.tensor([m]), cfg)
+    np.testing.assert_array_equal(got, cpu.numpy()[0])
+
+
+def test_center_detector_on_card_matches_cpu(dev):
+    """The CenterPoint ``Detector`` at a tiny config on the card (K1, K2's
+    two-layer instance, K3, K4) against the same detector on the CPU:
+    the dense maps to atol 1e-4, the packed rows at the tolerance of
+    ``test_detector_on_card_matches_cpu``."""
+    from torch_center_util import center_cloud, center_state_dict
+
+    cfg = tconfig.tiny_center_config()
+    sd = center_state_dict(cfg, 5)
+    rng = np.random.default_rng(2)
+    pts = np.full((2, cfg.max_points, 5), 1e6, np.float32)
+    ns = np.asarray([3000, 1500], np.int32)
+    for b, n in enumerate(ns):
+        pts[b, :n] = center_cloud(rng, cfg, int(n))
+    det, cpu = Detector(cfg, sd), Detector(cfg, sd, device="cpu")
+    p, n = torch.from_numpy(pts).to(dev), torch.from_numpy(ns).to(dev)
+    maps, = det.wire(det.canvas(p, n.long()))
+    want, = cpu.wire(cpu.canvas(torch.from_numpy(pts),
+                                torch.from_numpy(ns).long()))
+    torch.testing.assert_close(maps.cpu(), want, atol=1e-4, rtol=1e-4)
+    _build.reset_launches()
+    got = det.predict_packed_batch(pts, ns).cpu().numpy()
+    assert all(_build.LAUNCHES[k] == 1 for k in (
+        "emit", "fused_pfn2", "bev_scatter", "nms_overlap")), _build.LAUNCHES
+    want = cpu.predict_packed_batch(pts, ns).numpy()
+    assert got.shape == want.shape == (2, cfg.max_detections, 12)
+    np.testing.assert_array_equal(got[..., 9], want[..., 9])
+    np.testing.assert_array_equal(got[..., 8], want[..., 8])
+    np.testing.assert_allclose(got[..., 7], want[..., 7], atol=1e-4)
+    np.testing.assert_allclose(got[..., :6], want[..., :6], atol=5e-3)
+    np.testing.assert_allclose(got[..., 10:], want[..., 10:], atol=5e-3)
+    dyaw = (got[..., 6] - want[..., 6] + np.pi) % (2 * np.pi) - np.pi
+    assert np.abs(dyaw).max() < 5e-3

@@ -166,7 +166,9 @@ def test_port_imports_no_jax():
                    "data/native_io.py", "export.py", "utils/profiling.py",
                    "utils/viz.py", "parallel/__init__.py",
                    "parallel/mesh.py", "parallel/train_dp.py",
-                   "parallel/eval_dp.py", "parallel/spatial.py"):
+                   "parallel/eval_dp.py", "parallel/spatial.py",
+                   "models/centerpoint.py", "ops/center_decode.py",
+                   "reference_cpu/centerpoint.py"):
         assert os.path.join("tpu_pillars_torch", module) in rel, module
     for path in files:
         for mod in _imports(path):

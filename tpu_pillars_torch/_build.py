@@ -26,7 +26,8 @@ these ops.
 ``LAUNCHES`` counts each kernel's launches. :func:`launch` adds one right
 after a kernel launched, and nowhere else (a sidecar launch adds none) — so
 a run can show that its main path went through the kernels. K3's bf16
-instances (``INSTANCES``) count under their own names.
+instances and K2's two-layer one (``INSTANCES``) count under their own
+names.
 """
 
 from __future__ import annotations
@@ -53,8 +54,9 @@ EXTRA_FLAGS = {name: ["--fmad=false"] for name in (
 KERNELS = ("emit", "fused_pfn", "bev_scatter", "nms_overlap", "assign", "pfn",
            "radix_sort", "binning", "bev_gather", "stream_pfn", "iou_tiled")
 # K3's instances with a bf16 canvas (csrc/bev_scatter.cu), counted apart
-# from its f32 one, which counts as "bev_scatter"
-INSTANCES = ("bev_scatter_f32_bf16", "bev_scatter_bf16")
+# from its f32 one, which counts as "bev_scatter", and K2's two-layer
+# instance (csrc/fused_pfn.cu), apart from its one-layer "fused_pfn"
+INSTANCES = ("bev_scatter_f32_bf16", "bev_scatter_bf16", "fused_pfn2")
 LAUNCHES = {name: 0 for name in KERNELS + INSTANCES}
 
 _lock = threading.Lock()

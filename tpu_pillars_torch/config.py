@@ -195,3 +195,167 @@ def tiny_config(**kw) -> PillarsConfig:
     )
     base.update(kw)
     return PillarsConfig(**base)
+
+
+# ---------------------------------------------------------------------------
+# CenterPoint-PP (Yin, Zhou, Kraehenbuehl, arXiv:2006.11275), the port's
+# second model kind: the pillar front end of PointPillars with a two-layer
+# PFN, an RPN whose first block is strided down to the head's stride, and
+# a centre-based head of six tasks. Its own frozen dataclass: PillarsConfig's
+# fields, defaults and fingerprint stay as the JAX package has them.
+
+
+@dataclasses.dataclass(frozen=True)
+class CenterTask:
+    """One task of the centre head: its classes and their mean (w, l, h)
+    sizes in metres (nuScenes train-set means)."""
+
+    classes: Tuple[str, ...]
+    sizes: Tuple[Tuple[float, float, float], ...]
+
+
+# the six nuScenes tasks of the published configuration, in its order
+NUSC_TASKS: Tuple[CenterTask, ...] = (
+    CenterTask(("car",), ((1.97, 4.63, 1.74),)),
+    CenterTask(("truck", "construction_vehicle"),
+               ((2.51, 6.93, 2.84), (2.85, 6.37, 3.19))),
+    CenterTask(("bus", "trailer"), ((2.94, 10.5, 3.47), (2.90, 12.29, 3.87))),
+    CenterTask(("barrier",), ((2.53, 0.50, 0.98),)),
+    CenterTask(("motorcycle", "bicycle"),
+               ((0.77, 2.11, 1.47), (0.60, 1.70, 1.28))),
+    CenterTask(("pedestrian", "traffic_cone"),
+               ((0.67, 0.73, 1.77), (0.41, 0.41, 1.07))),
+)
+
+# the regression heads of every task, (name, channels), in the published
+# order; each task's heatmap (one channel a class) follows them
+CENTER_HEADS: Tuple[Tuple[str, int], ...] = (
+    ("reg", 2), ("height", 1), ("dim", 3), ("rot", 2), ("vel", 2))
+
+
+@dataclasses.dataclass(frozen=True)
+class CenterPointConfig:
+    """Everything static about the CenterPoint-PP detector. The front-end
+    fields carry PillarsConfig's names, so the pad, the sort, K1 and K3
+    take either config. Defaults are the published nuScenes setting
+    (``nusc_centerpoint_pp_02voxel_two_pfn_10sweep.py``)."""
+
+    # --- detection range (lidar frame, metres) and pillars ---
+    x_min: float = -51.2
+    x_max: float = 51.2
+    y_min: float = -51.2
+    y_max: float = 51.2
+    z_min: float = -5.0
+    z_max: float = 3.0
+    voxel_x: float = 0.2
+    voxel_y: float = 0.2
+    max_pillars: int = 60000          # the published test budget
+    max_points_per_pillar: int = 20
+    max_points: int = 327680          # 10 sweeps of up to 32,768 points
+    num_raw_features: int = 4         # x, y, z, intensity
+    num_sweeps: int = 10              # the dt column is on
+
+    # --- model ---
+    pfn_channels: Tuple[int, ...] = (64, 64)   # layer 1 is 32 + its max
+    rpn_channels: Tuple[int, int, int] = (64, 128, 256)
+    rpn_layers: Tuple[int, int, int] = (4, 6, 6)   # a strided conv + 3/5/5
+    rpn_up_channels: int = 128
+    rpn_up_strides: Tuple[float, ...] = (0.5, 1, 2)
+    out_stride: int = 4               # the head's stride over the grid
+    tasks: Tuple[CenterTask, ...] = NUSC_TASKS
+    head_conv: int = 64
+    common_heads: Tuple[Tuple[str, int], ...] = CENTER_HEADS
+    heatmap_bias: float = -2.19
+
+    # --- decode and NMS, per task ---
+    score_threshold: float = 0.1
+    post_center_limit: float = 61.2   # |x|, |y| of a kept centre
+    post_center_limit_z: float = 10.0  # |z| of a kept centre
+    nms_pre: int = 1000
+    nms_post: int = 83
+    nms_iou: float = 0.2
+
+    # ---------- derived static shapes ----------
+
+    @property
+    def grid_w(self) -> int:
+        return int(round((self.x_max - self.x_min) / self.voxel_x))
+
+    @property
+    def grid_h(self) -> int:
+        return int(round((self.y_max - self.y_min) / self.voxel_y))
+
+    @property
+    def feature_w(self) -> int:
+        return self.grid_w // self.out_stride
+
+    @property
+    def feature_h(self) -> int:
+        return self.grid_h // self.out_stride
+
+    @property
+    def num_input_features(self) -> int:
+        return self.num_raw_features + (1 if self.num_sweeps > 1 else 0)
+
+    @property
+    def num_decorated_features(self) -> int:
+        return self.num_input_features + 5
+
+    @property
+    def pfn_out(self) -> int:
+        return self.pfn_channels[-1]
+
+    @property
+    def class_names(self) -> Tuple[str, ...]:
+        return tuple(c for t in self.tasks for c in t.classes)
+
+    @property
+    def num_classes(self) -> int:
+        return len(self.class_names)
+
+    @property
+    def num_tasks(self) -> int:
+        return len(self.tasks)
+
+    @property
+    def max_detections(self) -> int:
+        """Detections a sweep: ``nms_post`` of each task."""
+        return self.nms_post * self.num_tasks
+
+    def validate(self) -> None:
+        assert self.x_max > self.x_min and self.y_max > self.y_min
+        assert self.z_max > self.z_min
+        assert self.voxel_x > 0 and self.voxel_y > 0
+        assert self.max_pillars > 0 and self.max_points_per_pillar > 0
+        assert len(self.pfn_channels) == 2, "the PFN has two layers"
+        assert self.pfn_channels[0] % 2 == 0
+        assert len(self.rpn_up_strides) == len(self.rpn_channels)
+        # every block's up path lands on the head's stride
+        for i, s in enumerate(self.rpn_up_strides):
+            assert 2 ** (i + 1) / s == self.out_stride, (i, s)
+        assert self.grid_w % (2 ** len(self.rpn_channels)) == 0
+        assert self.grid_h % (2 ** len(self.rpn_channels)) == 0
+        assert [n for n, _ in self.common_heads] == [
+            n for n, _ in CENTER_HEADS], "decode reads these heads"
+        assert all(len(t.classes) == len(t.sizes) >= 1 for t in self.tasks)
+        assert self.nms_pre >= self.nms_post
+        assert self.feature_h * self.feature_w >= self.nms_pre
+
+
+def centerpoint_pp_config(**kw) -> CenterPointConfig:
+    """The published CenterPoint-PP nuScenes setting: 10 sweeps, 0.2 m
+    pillars on a 512 x 512 grid, a two-layer PFN, RPN up-strides 0.5 / 1 /
+    2 to a 128 x 128 head, six tasks over ten classes."""
+    return CenterPointConfig(**kw)
+
+
+def tiny_center_config(**kw) -> CenterPointConfig:
+    """A small CenterPoint config for tests: a 64 x 64 grid at 0.2 m (the
+    published pillar), small budgets and widths, every task."""
+    base = dict(x_min=-6.4, x_max=6.4, y_min=-6.4, y_max=6.4,
+                max_pillars=512, max_points_per_pillar=8, max_points=4096,
+                pfn_channels=(16, 16), rpn_channels=(16, 32, 32),
+                rpn_layers=(2, 2, 2), rpn_up_channels=16, head_conv=16,
+                nms_pre=64, nms_post=12, post_center_limit=7.0)
+    base.update(kw)
+    return CenterPointConfig(**base)

@@ -403,3 +403,239 @@ extern "C" int fused_pfn(const float* table, const float* meta,
   if (c <= 128) return launch_f<4>(a, n_f, stream);
   return launch_f<8>(a, n_f, stream);
 }
+
+// ---------------------------------------------------------------------------
+// K2, two layers (fpfn2_kernel): CenterPoint-PP's PFN straight from the emit
+// table. It replaces no TPU kernel (the JAX package has one PFN layer); it
+// keeps the dense (B, P, N, 2 C1) table of the published two-layer PFN out
+// of device memory. For every pillar row, with the decoration and both
+// BatchNorms folded into the weights (ops/fused_pfn.fold_pfn2):
+//     h_j  = relu(W1_eff^T r'_j + t1)         (layer 1, C1 channels)
+//     m    = max(max_{j < kept} h_j, h_pad)   (its per-pillar max)
+//     out  = relu(max(max_{j < kept} (W2a^T h_j), W2a^T h_pad) + W2b^T m
+//                 + b2)
+// i.e. layer 2 on [h_j, m] split as h_j W2a + m W2b; 0 where cnt is 0.
+// t1 is K2's decoration bias, in K2's order. As in the published PFNLayer,
+// a pillar's padded slots (kept < N) take part in both maxima: a padded
+// slot's decorated row is zero, so after layer 1 it is h_pad = relu(b1),
+// b1 the folded BatchNorm bias, the same for every pillar; its layer-2
+// term W2a^T h_pad is taken once a thread, before the pillar loop.
+//
+// Bound on this card: bytes at the serving batch (the kept rows, five meta
+// rows, the (rows, C2) store), with C1 * (F + C2) multiply-adds a kept
+// point beside them. One warp takes one pillar at a time, in a grid-stride
+// loop over a grid of a few blocks an SM, so each block stages the layer-2
+// weights (2 C1 C2 floats, 16 KB at C1 = 32, C2 = 64) in shared memory
+// once:
+//   * lane j loads the pillar's kept row j (N <= 32) and the F values go
+//     to every lane by shuffles, point by point;
+//   * lane l computes layer-1 channel l (C1 <= 32) and its running max;
+//   * layer 2: lane l owns channels kV l .. kV l + kV - 1 (C2 <= 64); each
+//     h_j[c] comes from lane c by a shuffle, W2a row c from shared memory
+//     (neighbouring lanes, neighbouring words), summed c = 0, 1, ...
+// Built with --fmad=false in the plain version's order of operations
+// (ops/fused_pfn.pfn2_from_table_plain), so the two agree bit for bit.
+
+constexpr int kC1Max = 32;
+constexpr int kC2Max = 64;
+constexpr int kWarps2 = 4;
+
+template <int kF, int kV>
+__global__ void __launch_bounds__(kWarps2 * 32)
+fpfn2_kernel(const float* __restrict__ table, const float* __restrict__ meta,
+             const float* __restrict__ w1_eff,
+             const float* __restrict__ w1_dec,
+             const float* __restrict__ w2a, const float* __restrict__ w2b,
+             const float* __restrict__ b2, float* __restrict__ out,
+             int* __restrict__ pid_out, float* __restrict__ cnt_out,
+             int rows, int p_rows, int n_pts, int c1, int c2, int w_grid,
+             float x_min, float y_min, float vx, float vy) {
+  __shared__ float s_w2a[kC1Max * kC2Max];
+  __shared__ float s_w2b[kC1Max * kC2Max];
+  for (int i = threadIdx.x; i < c1 * c2; i += blockDim.x) {
+    s_w2a[i] = __ldg(w2a + i);
+    s_w2b[i] = __ldg(w2b + i);
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  // layer 1: this lane's channel
+  float we[kF], wd[6];
+  const bool own1 = lane < c1;
+#pragma unroll
+  for (int f = 0; f < kF; ++f)
+    we[f] = own1 ? __ldg(w1_eff + f * c1 + lane) : 0.0f;
+#pragma unroll
+  for (int r = 0; r < 6; ++r)
+    wd[r] = own1 ? __ldg(w1_dec + r * c1 + lane) : 0.0f;
+  // layer 2: this lane's channels
+  float bias2[kV];
+#pragma unroll
+  for (int k = 0; k < kV; ++k) {
+    const int ch = lane * kV + k;
+    bias2[k] = ch < c2 ? __ldg(b2 + ch) : 0.0f;
+  }
+  // a padded slot: layer 1 gives relu(b1) (lane l's channel l), and its
+  // layer-2 sum W2a^T h_pad in the order of a kept row's
+  const float h_pad = fmaxf(wd[5], 0.0f);
+  float u2_pad[kV];
+  for (int c = 0; c < c1; ++c) {
+    const float hc = __shfl_sync(kFull, h_pad, c);
+    const float* wr = s_w2a + c * c2 + lane * kV;
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      const float w = lane * kV + k < c2 ? wr[k] : 0.0f;
+      u2_pad[k] = c == 0 ? hc * w : u2_pad[k] + hc * w;
+    }
+  }
+
+  for (int q = blockIdx.x * kWarps2 + warp; q < rows;
+       q += gridDim.x * kWarps2) {
+    const int b = q / p_rows;
+    const float* mq = meta + (size_t)b * 8 * p_rows + (q - b * p_rows);
+    const float cnt = __ldg(mq);
+    const int pid = (int)__ldg(mq + p_rows);
+    float* oq = out + (size_t)q * c2;
+    if (lane == 0) {
+      pid_out[q] = pid;
+      cnt_out[q] = cnt;
+    }
+    if (!(cnt > 0.0f)) {
+#pragma unroll
+      for (int k = 0; k < kV; ++k)
+        if (lane * kV + k < c2) oq[lane * kV + k] = 0.0f;
+      continue;
+    }
+    const int kept = (int)fminf(ceilf(cnt), (float)n_pts);
+    // t1: K2's decoration bias from the means and the cell centre
+    const float inv_cnt = 1.0f / fmaxf(cnt, 1.0f);
+    const float mx = __ldg(mq + 2 * p_rows) * inv_cnt;
+    const float my = __ldg(mq + 3 * p_rows) * inv_cnt;
+    const float mz = __ldg(mq + 4 * p_rows) * inv_cnt;
+    const float cx = x_min + ((float)(pid % w_grid) + 0.5f) * vx;
+    const float cy = y_min + ((float)(pid / w_grid) + 0.5f) * vy;
+    float t1 = wd[5] - mx * wd[0];
+    t1 = t1 - my * wd[1];
+    t1 = t1 - mz * wd[2];
+    t1 = t1 - cx * wd[3];
+    t1 = t1 - cy * wd[4];
+
+    // lane j holds kept row j
+    float xr[kF];
+    const float* src = table + (size_t)q * n_pts * kF;
+#pragma unroll
+    for (int f = 0; f < kF; ++f)
+      xr[f] = lane < kept ? __ldg(src + lane * kF + f) : 0.0f;
+
+    float m1 = 0.0f;  // h >= 0, and every live pillar has a kept row
+    float smax[kV];
+#pragma unroll
+    for (int k = 0; k < kV; ++k) smax[k] = -INFINITY;
+    for (int j = 0; j < kept; ++j) {
+      float u = 0.0f;
+#pragma unroll
+      for (int f = 0; f < kF; ++f) {
+        const float x = __shfl_sync(kFull, xr[f], j);
+        u = f == 0 ? x * we[0] : u + x * we[f];
+      }
+      const float h = fmaxf(u + t1, 0.0f);
+      m1 = fmaxf(m1, h);
+      float u2[kV];
+      for (int c = 0; c < c1; ++c) {
+        const float hc = __shfl_sync(kFull, h, c);
+        const float* wr = s_w2a + c * c2 + lane * kV;
+#pragma unroll
+        for (int k = 0; k < kV; ++k) {
+          const float w = lane * kV + k < c2 ? wr[k] : 0.0f;
+          u2[k] = c == 0 ? hc * w : u2[k] + hc * w;
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kV; ++k) smax[k] = fmaxf(smax[k], u2[k]);
+    }
+    if (kept < n_pts) {  // the padded slots' row
+      m1 = fmaxf(m1, h_pad);
+#pragma unroll
+      for (int k = 0; k < kV; ++k) smax[k] = fmaxf(smax[k], u2_pad[k]);
+    }
+    float t2[kV];
+    for (int c = 0; c < c1; ++c) {
+      const float mc = __shfl_sync(kFull, m1, c);
+      const float* wr = s_w2b + c * c2 + lane * kV;
+#pragma unroll
+      for (int k = 0; k < kV; ++k) {
+        const float w = lane * kV + k < c2 ? wr[k] : 0.0f;
+        t2[k] = c == 0 ? mc * w : t2[k] + mc * w;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kV; ++k) {
+      const int ch = lane * kV + k;
+      if (ch < c2) oq[ch] = fmaxf(smax[k] + (t2[k] + bias2[k]), 0.0f);
+    }
+  }
+}
+
+template <int kF, int kV>
+int launch2(const float* table, const float* meta, const float* w1_eff,
+            const float* w1_dec, const float* w2a, const float* w2b,
+            const float* b2, float* out, int* pid, float* cnt, int rows,
+            int p_rows, int n_pts, int c1, int c2, int w_grid, float x_min,
+            float y_min, float vx, float vy, int grid, cudaStream_t stream) {
+  fpfn2_kernel<kF, kV><<<grid, kWarps2 * 32, 0, stream>>>(
+      table, meta, w1_eff, w1_dec, w2a, w2b, b2, out, pid, cnt, rows, p_rows,
+      n_pts, c1, c2, w_grid, x_min, y_min, vx, vy);
+  return (int)cudaGetLastError();
+}
+
+template <int kV>
+int launch2_f(int n_f, const float* table, const float* meta,
+              const float* w1_eff, const float* w1_dec, const float* w2a,
+              const float* w2b, const float* b2, float* out, int* pid,
+              float* cnt, int rows, int p_rows, int n_pts, int c1, int c2,
+              int w_grid, float x_min, float y_min, float vx, float vy,
+              int grid, cudaStream_t stream) {
+  using Launch = int (*)(const float*, const float*, const float*,
+                         const float*, const float*, const float*,
+                         const float*, float*, int*, float*, int, int, int,
+                         int, int, int, float, float, float, float, int,
+                         cudaStream_t);
+  constexpr Launch kByF[kMaxF] = {
+      launch2<1, kV>, launch2<2, kV>, launch2<3, kV>, launch2<4, kV>,
+      launch2<5, kV>, launch2<6, kV>, launch2<7, kV>, launch2<8, kV>};
+  return kByF[n_f - 1](table, meta, w1_eff, w1_dec, w2a, w2b, b2, out, pid,
+                       cnt, rows, p_rows, n_pts, c1, c2, w_grid, x_min,
+                       y_min, vx, vy, grid, stream);
+}
+
+// table (rows, n_pts * F), meta (B, 8, p_rows) with rows = B * p_rows,
+// w1_eff (F, C1), w1_dec (8, C1), w2a and w2b (C1, C2), b2 (C2,) -> out
+// (rows, C2), pid (rows,) int32 and cnt (rows,) f32, every element written.
+// 1 <= F <= 8, 1 <= C1 <= 32, 1 <= C2 <= 64, n_pts <= 32; anything else is
+// refused.
+extern "C" int fused_pfn2(const float* table, const float* meta,
+                          const float* w1_eff, const float* w1_dec,
+                          const float* w2a, const float* w2b, const float* b2,
+                          float* out, int* pid, float* cnt, int rows,
+                          int p_rows, int n_pts, int n_f, int c1, int c2,
+                          int w_grid, float x_min, float y_min, float vx,
+                          float vy, cudaStream_t stream) {
+  if (n_f < 1 || n_f > kMaxF || c1 < 1 || c1 > kC1Max || c2 < 1 ||
+      c2 > kC2Max || n_pts < 1 || n_pts > 32 || rows < 0 || p_rows < 0 ||
+      w_grid < 1 || (rows > 0 && (p_rows == 0 || rows % p_rows != 0)))
+    return (int)cudaErrorInvalidValue;
+  if (rows == 0) return 0;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int want = (rows + kWarps2 - 1) / kWarps2;
+  const int grid = want < 16 * sms ? want : 16 * sms;
+  if (c2 <= 32)
+    return launch2_f<1>(n_f, table, meta, w1_eff, w1_dec, w2a, w2b, b2, out,
+                        pid, cnt, rows, p_rows, n_pts, c1, c2, w_grid, x_min,
+                        y_min, vx, vy, grid, stream);
+  return launch2_f<2>(n_f, table, meta, w1_eff, w1_dec, w2a, w2b, b2, out,
+                      pid, cnt, rows, p_rows, n_pts, c1, c2, w_grid, x_min,
+                      y_min, vx, vy, grid, stream);
+}

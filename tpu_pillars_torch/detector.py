@@ -36,6 +36,15 @@ point with per-channel scales), converted to f32 on the card.
 :meth:`Detector.from_torch` serves weights in the CPU reference's torch
 layout (``reference_cpu``).
 
+A ``CenterPointConfig`` serves CenterPoint-PP through the same entry points
+and stages (:func:`build_center_model_fn`,
+:func:`build_center_postprocess_fn`): stage 1 is the sort, K1, K2's
+two-layer instance and K3, then the RPN and the centre head (spans
+``detector.rpn`` and ``detector.center_head``), giving the dense head maps
+as its one wire tensor; stage 2 is ``ops.center_decode`` (spans
+``detector.decode`` and ``detector.nms``), and its packed rows carry the
+velocity after the ten PointPillars columns. It serves in float32.
+
 The device defaults to ``"cuda"``: with no GPU the constructor raises
 unless the caller passes ``device="cpu"``, where the kernels' plain
 versions run instead.
@@ -50,19 +59,27 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tpu_pillars_torch.config import PillarsConfig
+from tpu_pillars_torch.config import CenterPointConfig, PillarsConfig
 from tpu_pillars_torch.data import native_io
 from tpu_pillars_torch.geometry.boxes import Box3D
 from tpu_pillars_torch.geometry.transforms import Pose
+from tpu_pillars_torch.models.centerpoint import CenterPoint
 from tpu_pillars_torch.models.pointpillars import PointPillars
 from tpu_pillars_torch.ops.anchors import make_anchors
 from tpu_pillars_torch.ops.bev import scatter_to_bev, scatter_to_bev_auto
-from tpu_pillars_torch.ops.emit import pillarize_batch_emit
-from tpu_pillars_torch.ops.fused_pfn import pillarize_pfn_fused
+from tpu_pillars_torch.ops.center_decode import (
+    CenterDetections, center_postprocess,
+)
+from tpu_pillars_torch.ops.emit import emit_table, pillarize_batch_emit
+from tpu_pillars_torch.ops.fused_pfn import (
+    center_points, pfn2_from_table, pillarize_pfn_fused,
+)
 from tpu_pillars_torch.ops.pfn import pfn_fused
 from tpu_pillars_torch.ops.postprocess import (
     Detections, postprocess_w, resolve_nms_impl,
 )
+from tpu_pillars_torch.ops.voxelize import sort_points_by_pillar
+from tpu_pillars_torch.utils import profiling
 from tpu_pillars_torch.utils.profiling import count, span
 from tpu_pillars_torch.utils.truncation import TruncationStats
 
@@ -203,6 +220,73 @@ def build_forward_fn(model: PointPillars, config: PillarsConfig,
         return stage2(*stage1(points, num_points))
 
     return forward
+
+
+def build_center_model_fn(model, config: CenterPointConfig):
+    """CenterPoint's stage 1, as :func:`build_model_fn`: f(points (B, M,
+    F), num_points (B,)) -> ``(maps,)``, the dense head maps (B, C, H / 4,
+    W / 4) f32 (``models.centerpoint.map_layout``), with ``.canvas``
+    (points -> (B, H, W, C) canvas: sort, K1, K2's two-layer instance, K3)
+    and ``.wire`` (canvas -> ``(maps,)``: the RPN and the centre head, in
+    the spans ``detector.rpn`` and ``detector.center_head``). The PFN's
+    folded weights and the head's stacked convolutions are taken once,
+    here. While tracing is on, the counter ``detector.pillars_dropped``
+    counts the occupied pillars over the budget."""
+    with torch.no_grad():
+        pfn = model.pfn.folded(config)
+        stacked = model.head.stacked()
+    hw = config.grid_h * config.grid_w
+
+    @torch.no_grad()
+    def canvas_fn(points, num_points):
+        if points.dim() == 2:
+            n = torch.as_tensor(num_points, device=points.device)
+            return canvas_fn(points[None], n.reshape(1))[0]
+        gid, pts = sort_points_by_pillar(points, num_points, config)
+        if profiling.recording():
+            starts = (gid < hw) & torch.cat(
+                [torch.ones_like(gid[:, :1], dtype=torch.bool),
+                 gid[:, 1:] != gid[:, :-1]], dim=1)
+            over = starts.sum(dim=1) - config.max_pillars
+            profiling.count_device("detector.pillars_dropped",
+                                   over.clamp(min=0).sum())
+        table, meta = emit_table(gid, center_points(gid, pts, config),
+                                 config.max_points_per_pillar,
+                                 config.max_pillars, hw)
+        feats, pid, cnt = pfn2_from_table(table, meta, *pfn, config)
+        return scatter_to_bev(feats, pid, cnt > 0.0, config)
+
+    @torch.no_grad()
+    def wire_fn(canvas):
+        if canvas.dim() == 3:
+            return tuple(t[0] for t in wire_fn(canvas[None]))
+        with span("detector.rpn", device=canvas.device):
+            feat = model.features_from_canvas(canvas)
+        with span("detector.center_head", device=canvas.device):
+            return (model.head_maps(feat, stacked),)
+
+    def run_model(points, num_points):
+        return wire_fn(canvas_fn(points, num_points))
+
+    run_model.canvas = canvas_fn
+    run_model.wire = wire_fn
+    return run_model
+
+
+def build_center_postprocess_fn(config: CenterPointConfig, device=None,
+                                nms_impl: str = "auto"):
+    """CenterPoint's stage 2: f(maps) -> ``CenterDetections`` (maps (B, C,
+    h, w), or one sweep's (C, h, w) without the batch axis); ``nms_impl``
+    as for :func:`build_postprocess_fn`."""
+    nms_impl = resolve_nms_impl(nms_impl, resolve_device(device))
+
+    @torch.no_grad()
+    def run_post(maps):
+        if maps.dim() == 3:
+            return CenterDetections(*(t[0] for t in run_post(maps[None])))
+        return center_postprocess(maps, config, nms_impl)
+
+    return run_post
 
 
 # the wire dtypes of the host -> device upload, and their numpy types
@@ -375,6 +459,9 @@ class Detector:
                     f"wire_buckets must end at config.max_points="
                     f"{config.max_points}; got {wire_buckets}")
         self.wire_buckets = wire_buckets
+        if isinstance(config, CenterPointConfig):
+            self._init_center(state_dict, dtype, nms_impl)
+            return
         model = PointPillars(config)
         model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
@@ -391,11 +478,31 @@ class Detector:
                                       dtype=dtype)
         self._post = build_postprocess_fn(config, self.device, nms_impl)
 
+    def _init_center(self, state_dict: dict, dtype, nms_impl: str) -> None:
+        """The CenterPoint kind: its model and stages, float32 only."""
+        if dtype != torch.float32:
+            raise TypeError("a CenterPoint Detector serves in float32")
+        self.dtype = dtype
+        model = CenterPoint(self.config)
+        model.load_state_dict(state_dict)
+        self.model = model.to(self.device).eval()
+        self._stage1 = build_center_model_fn(self.model, self.config)
+        self._post = build_center_postprocess_fn(self.config, self.device,
+                                                 nms_impl)
+
+    @property
+    def is_center(self) -> bool:
+        """Whether this detector serves CenterPoint (else PointPillars)."""
+        return isinstance(self.config, CenterPointConfig)
+
     def load_state_dict(self, state_dict: dict) -> None:
         """Serve other weights with the same programs and ``dtype``: copy
         ``state_dict`` into the model and fold the PFN weights again (stage
         1 takes them once, when it is built)."""
         self.model.load_state_dict(state_dict)
+        if self.is_center:
+            self._stage1 = build_center_model_fn(self.model, self.config)
+            return
         self._stage1 = build_model_fn(self.model, self.config,
                                       use_pallas_pfn=self.use_pallas_pfn,
                                       fused_frontend=self.fused_frontend,
@@ -445,12 +552,14 @@ class Detector:
         return self._stage1.canvas(points, num_points)
 
     def wire(self, canvas: torch.Tensor):
-        """Canvas -> wire tensors (own (B, A), box_p (B, 7, A),
-        dir_p (B, 2, A))."""
+        """Canvas -> wire tensors: PointPillars' (own (B, A), box_p (B, 7,
+        A), dir_p (B, 2, A)), CenterPoint's (maps (B, C, h, w),)."""
         return self._stage1.wire(canvas)
 
-    def postprocess(self, own, box_p, dir_p) -> Detections:
-        return self._post(own, box_p, dir_p)
+    def postprocess(self, *wire):
+        """Wire tensors -> ``Detections`` (PointPillars) or
+        ``CenterDetections`` (CenterPoint)."""
+        return self._post(*wire)
 
     def upload(self, x) -> torch.Tensor:
         """A host array or tensor -> the same dtype on ``self.device``. No
@@ -501,8 +610,11 @@ class Detector:
                 counts = self.upload(num_points).long()
             with span("detector.frontend", device=dev):
                 canvas = self.canvas(points, counts)
-            with span("detector.rpn_head", device=dev):
+            if self.is_center:      # its spans detector.rpn, .center_head
                 wire = self.wire(canvas)
+            else:
+                with span("detector.rpn_head", device=dev):
+                    wire = self.wire(canvas)
             with span("detector.postprocess", device=dev):
                 det = self.postprocess(*wire)
                 return pack_detections(det) if pack else det
@@ -510,11 +622,12 @@ class Detector:
     def predict_raw(self, points: np.ndarray) -> Detections:
         padded, n = self.pad_points(points)
         det = self.predict_raw_batch(padded[None], np.asarray([n]))
-        return Detections(*(t[0] for t in det))
+        return type(det)(*(t[0] for t in det))
 
     def predict_packed_batch(self, points_batch, num_points) -> torch.Tensor:
         """(B, M, F) padded clouds + (B,) counts -> (B, D, 10) device
-        tensor [x, y, z, w, l, h, yaw, score, class, valid]."""
+        tensor [x, y, z, w, l, h, yaw, score, class, valid]; CenterPoint's
+        rows add [vx, vy] (:func:`pack_detections`)."""
         return self._predict(points_batch, num_points, pack=True)
 
     def predict_packed(self, points: np.ndarray) -> torch.Tensor:
@@ -569,16 +682,23 @@ def download(packed: torch.Tensor) -> np.ndarray:
         return packed.cpu().numpy()
 
 
-def pack_detections(det: Detections) -> torch.Tensor:
-    """Detections -> (..., D, 10) f32 [x,y,z,w,l,h,yaw,score,class,valid]."""
-    return torch.cat([det.boxes, det.scores[..., None],
-                      det.class_ids.to(torch.float32)[..., None],
-                      det.valid.to(torch.float32)[..., None]], dim=-1)
+def pack_detections(det) -> torch.Tensor:
+    """Detections -> (..., D, 10) f32 [x,y,z,w,l,h,yaw,score,class,valid];
+    ``CenterDetections`` -> (..., D, 12), the same and [vx, vy]."""
+    cols = [det.boxes, det.scores[..., None],
+            det.class_ids.to(torch.float32)[..., None],
+            det.valid.to(torch.float32)[..., None]]
+    if hasattr(det, "velocity"):
+        cols.append(det.velocity)
+    return torch.cat(cols, dim=-1)
 
 
 def packed_to_boxes(packed: np.ndarray, config: PillarsConfig,
                     token: str = "",
                     lidar_to_global: Optional[Pose] = None) -> List[Box3D]:
+    """Packed rows (:func:`pack_detections`) of one sweep -> its valid
+    detections as ``Box3D`` (with the velocity where the rows carry
+    one)."""
     names = config.class_names
     out: List[Box3D] = []
     for row in packed:
@@ -586,6 +706,8 @@ def packed_to_boxes(packed: np.ndarray, config: PillarsConfig,
             continue
         box = Box3D.from_array(row[:7], label=names[int(row[8])],
                                score=float(row[7]), token=token)
+        if len(row) > 10:
+            box.velocity = np.asarray(row[10:12], dtype=np.float64)
         if lidar_to_global is not None:
             box = box.transformed(lidar_to_global.rotation,
                                   lidar_to_global.translation)

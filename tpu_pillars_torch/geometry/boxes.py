@@ -14,7 +14,7 @@ Conventions (Lyft/nuScenes devkit compatible):
 from __future__ import annotations
 
 import dataclasses
-
+from typing import Optional
 
 import numpy as np
 
@@ -34,11 +34,15 @@ class Box3D:
     label: str = ""               # class name
     score: float = -1.0           # detection confidence; -1 for ground truth
     token: str = ""               # sample token this box belongs to
+    velocity: Optional[np.ndarray] = None   # (2,) vx, vy (m/s), if known
 
     def __post_init__(self):
         self.center = np.asarray(self.center, dtype=np.float64).reshape(3)
         self.wlh = np.asarray(self.wlh, dtype=np.float64).reshape(3)
         self.yaw = float(self.yaw)
+        if self.velocity is not None:
+            self.velocity = np.asarray(self.velocity,
+                                       dtype=np.float64).reshape(2)
 
     # --- packed representation used on-device ---
 
@@ -59,8 +63,13 @@ class Box3D:
         new_center = quat_rotate(rotation_q, self.center) + np.asarray(translation)
         q_box = quat_from_yaw(self.yaw)
         new_yaw = float(yaw_from_quat(quat_multiply(rotation_q, q_box)))
+        velocity = None
+        if self.velocity is not None:
+            velocity = quat_rotate(rotation_q,
+                                   np.append(self.velocity, 0.0))[:2]
         return Box3D(new_center, self.wlh.copy(), new_yaw,
-                     label=self.label, score=self.score, token=self.token)
+                     label=self.label, score=self.score, token=self.token,
+                     velocity=velocity)
 
     def corners_bev(self) -> np.ndarray:
         return box_corners_bev(self.to_array()[None])[0]

@@ -157,19 +157,53 @@ class UpBlock(nn.Module):
         return torch.relu(y), mean, var
 
 
+class DownBlock(nn.Module):
+    """An up-stride below 1: Conv(k=1/s, s=1/s, no padding, no bias) + BN +
+    ReLU. Its kernel is laid out (out, in, k, k), a convolution's, where
+    :class:`UpBlock`'s transposed one is (in, out, k, k)."""
+
+    def __init__(self, in_ch: int, channels: int, stride: int):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(torch.zeros(channels, in_ch, stride,
+                                               stride))
+        self.bn = BatchNorm(channels)
+
+    def forward(self, x, dtype=torch.float32):
+        return torch.relu(self.bn(F.conv2d(
+            x.to(dtype), self.weight.to(dtype), stride=self.stride)))
+
+    def train_forward(self, x, dtype=torch.float32, mesh=None):
+        y, mean, var = self.bn.train_forward(F.conv2d(
+            x.to(dtype), self.weight.to(dtype), stride=self.stride), mesh)
+        return torch.relu(y), mean, var
+
+
+def up_block(in_ch: int, channels: int, stride) -> nn.Module:
+    """The up path of one block: :class:`UpBlock` for an up-stride of 1 or
+    more, :class:`DownBlock` for one below 1 (0.5: a stride-2 conv)."""
+    if stride >= 1:
+        return UpBlock(in_ch, channels, int(round(stride)))
+    return DownBlock(in_ch, channels, int(round(1.0 / stride)))
+
+
 class RPNBackbone(nn.Module):
-    """(B, C_in, H, W) -> (B, 3 * up_channels, H/2, W/2)."""
+    """(B, C_in, H, W) -> (B, 3 * up_channels, H / s, W / s), where block i
+    sits at stride 2^(i+1) and ``up_strides[i]`` brings it to the head's
+    stride s; the default up-strides 1, 2, 4 give PointPillars' s = 2."""
 
     def __init__(self, in_ch: int, channels: Sequence[int] = (64, 128, 256),
-                 layers: Sequence[int] = (4, 6, 6), up_channels: int = 128):
+                 layers: Sequence[int] = (4, 6, 6), up_channels: int = 128,
+                 up_strides: Sequence[float] = None):
         super().__init__()
         self.blocks = nn.ModuleList()
         self.ups = nn.ModuleList()
+        if up_strides is None:
+            up_strides = [2 ** i for i in range(len(channels))]
         prev = in_ch
-        for i, (ch, n) in enumerate(zip(channels, layers)):
+        for ch, n, s in zip(channels, layers, up_strides):
             self.blocks.append(ConvBlock(prev, ch, n, stride=2))
-            # block i sits at stride 2^(i+1); the head lives at stride 2
-            self.ups.append(UpBlock(ch, up_channels, 2 ** i))
+            self.ups.append(up_block(ch, up_channels, s))
             prev = ch
 
     def forward(self, x, dtype=torch.float32):

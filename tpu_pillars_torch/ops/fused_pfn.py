@@ -346,3 +346,143 @@ def pillarize_pfn_fused(points, num_points, w, b, config: PillarsConfig):
     w_eff, w_dec = fold_decoration(w, b, config)
     feats, pid_per, cnt = pfn_from_table(table, meta, w_eff, w_dec, config)
     return feats, pid_per, cnt > 0.0
+
+
+# ---------------------------------------------------------------------------
+# K2, two layers: CenterPoint-PP's PFN (layer 1, its per-pillar max
+# concatenated to every point, layer 2, the max) from the same emit table.
+
+
+def fold_pfn2(w1, bn1, w2, bn2, config, eps: float = 1e-3):
+    """The two-layer PFN's weights with both inference BatchNorms and the
+    decoration folded in: w1 (D, C1), w2 (2 C1, C2) linear kernels (no
+    bias), bn1 and bn2 (scale, bias, mean, var) -> (w1_eff (F, C1), w1_dec
+    (8, C1), w2a (C1, C2), w2b (C1, C2), b2 (C2,)); layer 2 on [h, m] is h
+    w2a + m w2b + b2."""
+    w, b = fold_bn(w1, *bn1, eps=eps)
+    w1_eff, w1_dec = fold_decoration(w, b, config)
+    w2f, b2 = fold_bn(w2, *bn2, eps=eps)
+    c1 = w1.shape[1]
+    if w2.shape[0] != 2 * c1:
+        raise ValueError(f"PFN layer 2 takes {w2.shape[0]} inputs; layer 1 "
+                         f"gives {c1} and its max")
+    return (w1_eff, w1_dec, w2f[:c1].contiguous(), w2f[c1:].contiguous(),
+            b2)
+
+
+def pfn2_from_table(table, meta, w1_eff, w1_dec, w2a, w2b, b2, config):
+    """K2's two-layer instance. table (B*P, N*F), meta (B*8, P)
+    (``ops.emit.emit_table``), the :func:`fold_pfn2` weights ->
+    (feats (B, P, C2) f32, pid_per (B, P) int32, cnt (B, P) f32). The op
+    ``tpu_pillars::pfn2_from_table``: :func:`pfn2_from_table_cuda` on a
+    CUDA tensor, :func:`pfn2_from_table_plain` on a CPU tensor."""
+    return _PFN2_FROM_TABLE(table, meta, w1_eff, w1_dec, w2a, w2b, b2,
+                            *geometry(config))
+
+
+def pfn2_from_table_cuda(table: torch.Tensor, meta: torch.Tensor,
+                         w1_eff: torch.Tensor, w1_dec: torch.Tensor,
+                         w2a: torch.Tensor, w2b: torch.Tensor,
+                         b2: torch.Tensor, n_pts: int, grid_w: int,
+                         x_min: float, y_min: float, voxel_x: float,
+                         voxel_y: float
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The launch of ``fused_pfn2`` (``csrc/fused_pfn.cu``), the CUDA
+    implementation of ``tpu_pillars::pfn2_from_table``."""
+    dev = table.device
+    for name, t in (("table", table), ("meta", meta), ("w1_eff", w1_eff),
+                    ("w1_dec", w1_dec), ("w2a", w2a), ("w2b", w2b),
+                    ("b2", b2)):
+        if t.dtype != torch.float32 or t.device != dev:
+            raise TypeError(f"pfn2_from_table: {name} must be float32 on "
+                            f"{dev}, got {t.dtype} on {t.device}")
+    F, C1 = w1_eff.shape
+    C2 = w2a.shape[1]
+    p_rows = meta.shape[1]
+    B = meta.shape[0] // META_ROWS
+    rows = B * p_rows
+    if meta.shape[0] != B * META_ROWS \
+            or table.shape != (rows, n_pts * F) \
+            or w1_dec.shape != (META_ROWS, C1) or w2a.shape != (C1, C2) \
+            or w2b.shape != (C1, C2) or b2.shape != (C2,):
+        raise ValueError(f"pfn2_from_table: table {tuple(table.shape)}, "
+                         f"w1_dec {tuple(w1_dec.shape)}, w2a "
+                         f"{tuple(w2a.shape)}, w2b {tuple(w2b.shape)}, b2 "
+                         f"{tuple(b2.shape)} do not fit meta "
+                         f"{tuple(meta.shape)}, N={n_pts}, F={F}")
+    out = torch.empty((B, p_rows, C2), dtype=torch.float32, device=dev)
+    pid = torch.empty((B, p_rows), dtype=torch.int32, device=dev)
+    cnt = torch.empty((B, p_rows), dtype=torch.float32, device=dev)
+    _build.launch("fused_pfn", "fused_pfn2", "ppppppppppiiiiiiiffff",
+                  table.contiguous(), meta.contiguous(),
+                  w1_eff.contiguous(), w1_dec.contiguous(),
+                  w2a.contiguous(), w2b.contiguous(), b2.contiguous(), out,
+                  pid, cnt, rows, p_rows, n_pts, F, C1, C2, grid_w, x_min,
+                  y_min, voxel_x, voxel_y, count="fused_pfn2")
+    return out, pid, cnt
+
+
+def _pfn2_from_table_cpu(table, meta, w1_eff, w1_dec, w2a, w2b, b2, n_pts,
+                         grid_w, x_min, y_min, voxel_x, voxel_y):
+    return pfn2_from_table_plain(
+        table, meta, w1_eff, w1_dec, w2a, w2b, b2, SimpleNamespace(
+            max_points_per_pillar=n_pts, grid_w=grid_w, x_min=x_min,
+            y_min=y_min, voxel_x=voxel_x, voxel_y=voxel_y))
+
+
+def _pfn2_from_table_fake(table, meta, w1_eff, w1_dec, w2a, *_):
+    B, P = meta.shape[0] // META_ROWS, meta.shape[1]
+    return (table.new_empty((B, P, w2a.shape[1])),
+            table.new_empty((B, P), dtype=torch.int32),
+            table.new_empty((B, P)))
+
+
+def pfn2_from_table_plain(table, meta, w1_eff, w1_dec, w2a, w2b, b2,
+                          config):
+    """Plain PyTorch version of :func:`pfn2_from_table`, summed in the
+    kernel's order (layer 1 over f = 0, 1, ..., layer 2 over c = 0, 1,
+    ..., its bias last) so that the two agree bit for bit. A pillar's
+    padded slots (fewer than N kept points) take part in both maxima, as
+    in the published PFNLayer: their decorated rows are zero, so layer 1
+    gives them relu(b1), ``w1_dec[5]`` being the folded bias b1."""
+    N = config.max_points_per_pillar
+    F, C1 = w1_eff.shape
+    p_rows = meta.shape[1]
+    B, cnt_b, pid_b = _split_meta(meta, p_rows)
+    rows = B * p_rows
+    m = meta.reshape(B, META_ROWS, p_rows)
+    cnt = cnt_b.reshape(rows, 1)
+    pid = pid_b.reshape(rows)
+
+    X = table[:, :N * F].reshape(rows, N, 1, F)
+    u = X[..., 0] * w1_eff[0]
+    for f in range(1, F):
+        u = u + X[..., f] * w1_eff[f]                           # (rows, N, C1)
+    cx, cy = _cell_centres(pid, config)
+    inv_cnt = 1.0 / torch.clamp(cnt, min=1.0)
+    mx = m[:, 2].reshape(rows, 1) * inv_cnt
+    my = m[:, 3].reshape(rows, 1) * inv_cnt
+    mz = m[:, 4].reshape(rows, 1) * inv_cnt
+    t1 = (w1_dec[5] - mx * w1_dec[0] - my * w1_dec[1] - mz * w1_dec[2]
+          - cx * w1_dec[3] - cy * w1_dec[4])
+    seg = torch.arange(N, dtype=torch.float32, device=table.device)
+    live = (seg[None, :] < cnt)[..., None]                      # (rows, N, 1)
+    h_pad = torch.clamp(w1_dec[5], min=0.0)
+    h = torch.where(live, torch.clamp(u + t1[:, None, :], min=0.0), h_pad)
+    m1 = h.amax(dim=1)                                          # (rows, C1)
+
+    u2 = h[..., 0:1] * w2a[0]
+    for c in range(1, C1):
+        u2 = u2 + h[..., c:c + 1] * w2a[c]                      # (rows, N, C2)
+    smax = u2.amax(dim=1)
+    t2 = m1[:, 0:1] * w2b[0]
+    for c in range(1, C1):
+        t2 = t2 + m1[:, c:c + 1] * w2b[c]
+    out = torch.where(cnt > 0.0, torch.clamp(smax + (t2 + b2), min=0.0), 0.0)
+    return out.reshape(B, p_rows, -1), pid_b, cnt_b
+
+
+_PFN2_FROM_TABLE = _build.kernel_op(
+    "pfn2_from_table", pfn2_from_table_cuda, _pfn2_from_table_cpu,
+    _pfn2_from_table_fake)
+

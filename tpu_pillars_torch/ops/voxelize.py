@@ -18,7 +18,8 @@ Canonical semantics:
      the offset to the pillar's cell center. Padded slots are all-zero.
 
 The pillar id is ``floor((x - x_min) / voxel)`` in f32 with a correctly
-rounded division — on the card as on the CPU (no fast math anywhere).
+rounded division — on the card as on the CPU, at any pitch (no fast math
+anywhere, and no division turned into a multiply by the reciprocal).
 
 :func:`pillarize` is one sweep, :func:`pillarize_batch` a batch; both are
 plain PyTorch. ``ops.emit.pillarize_auto`` / ``pillarize_batch_auto`` run
@@ -59,8 +60,14 @@ def pillar_ids(points: torch.Tensor, num_points: torch.Tensor,
     x, y, z = points[..., 0], points[..., 1], points[..., 2]
     alive = (torch.arange(M, device=points.device)[None, :]
              < num_points.to(points.device)[:, None])
-    col = torch.floor((x - config.x_min) / config.voxel_x).to(torch.int32)
-    row = torch.floor((y - config.y_min) / config.voxel_y).to(torch.int32)
+    # the pitch as a device tensor: CUDA divides by a host scalar as a
+    # multiply by its f32 reciprocal, which misplaces points at cell
+    # boundaries unless the pitch is a power of two; by a tensor it divides
+    # correctly rounded, as the CPU does
+    col = torch.floor((x - config.x_min) / x.new_full((), config.voxel_x)
+                      ).to(torch.int32)
+    row = torch.floor((y - config.y_min) / y.new_full((), config.voxel_y)
+                      ).to(torch.int32)
     in_range = ((col >= 0) & (col < W) & (row >= 0) & (row < H)
                 & (z >= config.z_min) & (z <= config.z_max))
     valid = alive & in_range

@@ -2,7 +2,8 @@
 one span recorder.
 
 The recorder: :func:`span` (a context manager), :func:`count` (a
-counter), :func:`summary`, :func:`records`, :func:`reset`. It records while
+counter), :func:`count_device` (a counter of a device scalar, read
+without a synchronise), :func:`summary`, :func:`records`, :func:`reset`. It records while
 a ``torch.profiler`` records, or between :func:`enable` and
 :func:`disable`, and at no other time: off, a span is one check and a
 shared no-op context (no CUDA event, no ``record_function``). On, a span
@@ -111,6 +112,7 @@ class Recorder:
             self._pending = deque()
             self._last_end = {}     # (unit name, device) -> its end event
             self._units = 0
+            self._counts = deque()  # (name, pinned host value, event)
 
     def span(self, name: str, device: Optional[torch.device] = None,
              unit: bool = False) -> Span:
@@ -216,6 +218,34 @@ class Recorder:
         with self._lock:
             self.counters[name] += n
 
+    def count_device(self, name: str, value: torch.Tensor) -> None:
+        """Adds the 0-d tensor ``value`` to the counter ``name`` without a
+        synchronise: on a card it crosses to pinned host memory behind an
+        event and is added once the event has completed, or in
+        :meth:`summary`."""
+        if value.device.type != "cuda":
+            self.count(name, value.item())
+            return
+        host = torch.empty((), dtype=value.dtype, pin_memory=True)
+        host.copy_(value, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(value.device))
+        with self._lock:
+            self._counts.append((name, host, ev))
+            self._add_counts(wait=False)
+
+    def _add_counts(self, wait: bool) -> None:
+        """Adds the device counts whose copies are done (``wait``: all,
+        waiting for each), oldest first; under the lock."""
+        while self._counts:
+            name, host, ev = self._counts[0]
+            if wait:
+                ev.synchronize()
+            elif not ev.query():
+                return
+            self._counts.popleft()
+            self.counters[name] += host.item()
+
     def summary(self) -> dict:
         """{"spans": {name: {"count", "host_ms", "self_ms", "device_ms",
         "gap_ms", "gaps"}}, "counters": {name: total}}: totals since the
@@ -227,6 +257,7 @@ class Recorder:
                 for device in {p[5] for p in self._pending}:
                     torch.cuda.synchronize(device)
                 self._resolve(wait=True)
+            self._add_counts(wait=True)
             return {"spans": {k: t.as_dict() for k, t in self.totals.items()},
                     "counters": dict(self.counters)}
 
@@ -285,6 +316,15 @@ def count(name: str, n=1) -> None:
     """Adds ``n`` to the counter ``name`` while tracing is on."""
     if _enabled or _profiler_enabled():
         _RECORDER.count(name, n)
+
+
+def count_device(name: str, value: torch.Tensor) -> None:
+    """Adds the 0-d tensor ``value`` to the counter ``name`` while tracing
+    is on, without a synchronise (:meth:`Recorder.count_device`). A caller
+    computes ``value`` only while :func:`recording`, so that the card does
+    no work for it otherwise."""
+    if _enabled or _profiler_enabled():
+        _RECORDER.count_device(name, value)
 
 
 def summary() -> dict:
