@@ -7,7 +7,7 @@ Needs one CUDA card and ``nvcc`` (``/usr/local/cuda`` or ``CUDA_HOME``), and
 imports nothing of JAX. Phases; any failure exits non-zero before the last
 line:
 
-  1. Print the card (``nvidia-smi`` name and power limit) and build the 11
+  1. Print the card (``nvidia-smi`` name and power limit) and build the 12
      CUDA kernels of ``tpu_pillars_torch/csrc`` from source (K3's source
      holds three instances: f32 rows to an f32 canvas, f32 rows to a bf16
      canvas, bf16 rows to a bf16 canvas).
@@ -19,8 +19,10 @@ line:
      into a zeroed bf16 canvas, the f32 -> bf16 one also to the f32 canvas
      cast to bf16), K2 fused PFN within atol 1e-5 / rtol 1e-5, K4 NMS
      overlap equal except pairs whose IoU lies within 1e-4 of the
-     threshold. K11 stream front end within atol 1e-5 / rtol 1e-5 of its
-     plain version and atol 1e-4 / rtol 1e-5 of K3's fused canvas, the
+     threshold, the NMS keep (``nms_scan``) on K4's matrix of the batch
+     bit-equal to the fixpoint loop. K11 stream front end within atol
+     1e-5 / rtol 1e-5 of its plain version and atol 1e-4 / rtol 1e-5 of
+     K3's fused canvas, the
      occupancy equal cell for cell. K7 tiled IoU on the batch's 8 x 1,024
      top-k candidates within atol 1e-5 of its plain version, and within
      1e-3 of the float64 polygon clip on the candidate pairs that pass the
@@ -45,14 +47,16 @@ line:
      ``fused_pfn2`` launched once (the counts reset before it) and
      bit-equal to its plain version, timed, its bound from the batch's
      counts; ``Detector`` ``predict_packed_batch`` on the batch with K1,
-     ``fused_pfn2``, K3 and K4 launched once each and the one-layer K2
-     not, finite (8, 498, 12) rows with boxes, and its time a batch.
+     ``fused_pfn2``, K3, K4 and ``nms_scan`` launched once each and the
+     one-layer K2 not, finite (8, 498, 12) rows with boxes, and its time a
+     batch; ``nms_scan`` on that call's 48 x 1,000 rows bit-equal to the
+     fixpoint loop, timed, with its bound.
   3. The serving path: ``Detector.from_checkpoint`` on the committed
      trained checkpoint; ``predict`` on the 8 golden scenes of
      ``tests/data/torch_golden_synth4k.npz`` (written by
      ``scripts/make_torch_golden.py`` from the JAX package) must reproduce
      the JAX detections; ``predict_packed_batch`` at batch 8 is timed by
-     stage. K1-K4 must have launched during these calls.
+     stage. K1-K4 and ``nms_scan`` must have launched during these calls.
      3d. The stream front end and the tiled IoU as drop-ins: the stream
      canvas of the batch against the fused one, the stream canvas then
      ``wire`` and ``postprocess`` on the 8 golden scenes against the JAX
@@ -354,6 +358,13 @@ def device_ms(fn, iters: int = 5) -> float:
     return total_us / iters / 1e3
 
 
+def scan_bytes(b: int, k: int) -> int:
+    """The bytes ``nms_scan`` must move for b rows of k candidates: the
+    strict upper triangle of ``over`` (all it reads of the matrix), the
+    valid mask read and the keep mask written."""
+    return b * k * (k - 1) // 2 + 2 * b * k
+
+
 def bound(n_bytes: float, n_ops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
@@ -375,7 +386,7 @@ def main() -> None:
     from tpu_pillars_torch.config import PillarsConfig
     from tpu_pillars_torch.detector import Detector
     from tpu_pillars_torch.ops import (
-        bev, emit, fused_pfn, nms_overlap, postprocess,
+        bev, emit, fused_pfn, nms, nms_overlap, postprocess,
     )
     from tpu_pillars_torch.ops.voxelize import sort_points_by_pillar
     from tpu_pillars_torch.train.loop import synthetic_batches
@@ -405,11 +416,12 @@ def main() -> None:
     counts = torch.from_numpy(np.asarray([n for _, n in padded])).to(dev)
 
     # K4's inputs are the class-blocked candidates of the main path, K7's
-    # the same top-k candidates before the class shift: record both from
-    # one batch call
-    seen, cands = [], []
+    # the same top-k candidates before the class shift, the NMS keep's K4's
+    # matrix and the candidates' valid mask: record them from one batch call
+    seen, cands, keeps = [], [], []
     launch_overlap = nms_overlap.overlap_matrix
     nms_entry = postprocess.rotated_nms_overlap
+    keep_entry = nms_overlap.nms_fixpoint
     shift = 4.0 * ((cfg.x_max - cfg.x_min) + (cfg.y_max - cfg.y_min))
 
     def recording(boxes, thr):
@@ -423,13 +435,19 @@ def main() -> None:
         return nms_entry(shifted, valid, thr, class_ids=class_ids,
                          class_gap=class_gap)
 
+    def recording_keep(over, valid):
+        keeps.append((over.clone(), valid.clone()))
+        return keep_entry(over, valid)
+
     nms_overlap.overlap_matrix = recording
     postprocess.rotated_nms_overlap = recording_nms
+    nms_overlap.nms_fixpoint = recording_keep
     try:
         det.predict_packed_batch(points, counts)
     finally:
         nms_overlap.overlap_matrix = launch_overlap
         postprocess.rotated_nms_overlap = nms_entry
+        nms_overlap.nms_fixpoint = keep_entry
     torch.cuda.synchronize()
 
     # ---- phase 2: every kernel against its plain version, on the card
@@ -565,7 +583,20 @@ def main() -> None:
         library_ms=None,
         bound=bound(boxes.numel() * 4 + over.numel(),
                     pairs * K4_OPS_GATE + hot * K4_OPS_HOT))
-    del canvas_p, over_p, feats_p, table_p, meta_p
+    # the NMS keep (nms_scan) on the batch's K4 matrix and valid mask,
+    # against the fixpoint loop, bit for bit
+    over_k, valid_k = keeps[0]
+    keep = nms.nms_fixpoint(over_k, valid_k)
+    if not torch.equal(keep, nms.nms_fixpoint_loop(over_k, valid_k)):
+        fail("the NMS keep (nms_scan) differs from the fixpoint loop")
+    print(f"nms_scan: {int(keep.sum())} of {int(valid_k.sum())} valid "
+          f"candidates kept, bit-equal to the fixpoint loop")
+    rows["nms_scan"] = dict(
+        err=0.0, ms=cuda_ms(lambda: nms.nms_fixpoint(over_k, valid_k), 20),
+        plain_ms=cuda_ms(lambda: nms.nms_fixpoint_loop(over_k, valid_k), 3),
+        library_ms=None,
+        bound=bound(scan_bytes(*valid_k.shape), 0.0))
+    del canvas_p, over_p, feats_p, table_p, meta_p, over_k, keeps
     torch.cuda.empty_cache()
     # K11 on the same sorted, centred batch, against its plain version and
     # the fused path's canvas (K1, K2, K3 above)
@@ -588,7 +619,8 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"launches on the serving path: {launches}")
-    for name in ("emit", "fused_pfn", "bev_scatter", "nms_overlap"):
+    for name in ("emit", "fused_pfn", "bev_scatter", "nms_overlap",
+                 "nms_scan"):
         if launches[name] == 0:
             fail(f"kernel {name} did not launch on the serving path")
     out = out.cpu().numpy()
@@ -616,7 +648,7 @@ def main() -> None:
     torch.cuda.synchronize()
     classic = dict(_build.LAUNCHES)
     print(f"launches on the classic serving path: {classic}")
-    for name in ("emit", "pfn", "bev_scatter", "nms_overlap"):
+    for name in ("emit", "pfn", "bev_scatter", "nms_overlap", "nms_scan"):
         if classic[name] == 0:
             fail(f"kernel {name} did not launch on the classic path")
     if classic["fused_pfn"]:
@@ -711,6 +743,8 @@ def main() -> None:
                 "bev_gather": "tpu_pillars/ops/bev_pallas.py:62",
                 "stream_pfn": "tpu_pillars/ops/stream_pfn.py:128",
                 "iou_tiled": "tpu_pillars/ops/iou_pallas.py:88",
+                "nms_scan": "none (the NMS fixpoint's lax.while_loop, "
+                            "tpu_pillars/ops/nms.py:65-69, left to XLA)",
                 "bev_scatter_f32_bf16": "tpu_pillars/ops/bev_pallas.py:330",
                 "bev_scatter_bf16": "tpu_pillars/ops/bev_pallas.py:330",
                 "fused_pfn2": "none (CenterPoint's two-layer PFN; the JAX "
@@ -2057,7 +2091,7 @@ def anchor_major_serving(cfg, points, counts, golden):
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"launches on the anchor-major path (batch {BATCH}): {launches}")
-    for name in ("emit", "bev_scatter", "nms_overlap"):
+    for name in ("emit", "bev_scatter", "nms_overlap", "nms_scan"):
         if launches[name] == 0:
             fail(f"kernel {name} did not launch on the anchor-major path")
     for name in ("fused_pfn", "pfn"):
@@ -2213,7 +2247,8 @@ def bf16_serving(cfg, points, counts, clouds):
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"launches on the bf16 serving path: {launches}")
-    for name in ("emit", "fused_pfn", "bev_scatter_f32_bf16", "nms_overlap"):
+    for name in ("emit", "fused_pfn", "bev_scatter_f32_bf16", "nms_overlap",
+                 "nms_scan"):
         if launches[name] == 0:
             fail(f"kernel {name} did not launch on the bf16 serving path")
     if launches["bev_scatter"]:
@@ -2257,7 +2292,7 @@ def bf16_serving(cfg, points, counts, clouds):
     out = plain16.predict_packed_batch(points, counts)
     torch.cuda.synchronize()
     classic = dict(_build.LAUNCHES)
-    for name in ("emit", "bev_scatter_bf16", "nms_overlap"):
+    for name in ("emit", "bev_scatter_bf16", "nms_overlap", "nms_scan"):
         if classic[name] == 0:
             fail(f"kernel {name} did not launch on the classic bf16 path")
     if classic["pfn"] or classic["fused_pfn"] or classic["bev_scatter"]:
@@ -2582,7 +2617,7 @@ def resume_phase(cfg, card):
         torch.cuda.synchronize()
         with_eval = dict(_build.LAUNCHES)
         for name in ("emit", "fused_pfn", "bev_scatter", "nms_overlap",
-                     "assign"):
+                     "nms_scan", "assign"):
             if with_eval[name] == 0:
                 fail(f"kernel {name} did not launch in the EMA and eval run")
         evals = [json.loads(x) for x in open(jsonl)]
@@ -2666,8 +2701,9 @@ def centerpoint_phase(card):
     py``'s reckoning); K3 bit-equal to its plain version; then
     ``Detector(centerpoint_pp_config())`` ``predict_packed_batch`` on the
     batch with its own launch counts (K1, K2's two-layer instance, K3, K4
-    once each), (8, 498, 12) finite rows, boxes found, and its time a
-    batch. -> (the kernels row of ``fused_pfn2``, the detector's
+    and ``nms_scan`` once each), (8, 498, 12) finite rows, boxes found, and
+    its time a batch; ``nms_scan`` on the (48, 1000, 1000) matrix of that
+    call bit-equal to the fixpoint loop, timed, and its bound. -> (the kernels row of ``fused_pfn2``, the detector's
     launches)."""
     import numpy as np
     import torch
@@ -2676,7 +2712,7 @@ def centerpoint_phase(card):
     from tpu_pillars_torch.config import centerpoint_pp_config
     from tpu_pillars_torch.detector import Detector
     from tpu_pillars_torch.models.centerpoint import CenterPoint
-    from tpu_pillars_torch.ops import bev, emit, fused_pfn
+    from tpu_pillars_torch.ops import bev, emit, fused_pfn, nms, nms_overlap
     from tpu_pillars_torch.ops.voxelize import sort_points_by_pillar
 
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -2752,13 +2788,27 @@ def centerpoint_phase(card):
     del canvas, table, meta, feats
     torch.cuda.empty_cache()
 
+    # the NMS keep's inputs, K4's matrix over every (sample, task) row and
+    # the candidates' valid mask, recorded from the batch call
+    keeps = []
+    keep_entry = nms_overlap.nms_fixpoint
+
+    def recording_keep(over, valid):
+        keeps.append((over.clone(), valid.clone()))
+        return keep_entry(over, valid)
+
     _build.reset_launches()
-    out = det.predict_packed_batch(points, counts)
+    nms_overlap.nms_fixpoint = recording_keep
+    try:
+        out = det.predict_packed_batch(points, counts)
+    finally:
+        nms_overlap.nms_fixpoint = keep_entry
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     print(f"2b: launches of CenterPoint's predict_packed_batch: "
           f"{ {k: v for k, v in launches.items() if v} }")
-    for name in ("emit", "fused_pfn2", "bev_scatter", "nms_overlap"):
+    for name in ("emit", "fused_pfn2", "bev_scatter", "nms_overlap",
+                 "nms_scan"):
         if launches[name] != 1:
             fail(f"{name} launched {launches[name]} times in CenterPoint's "
                  f"batch call")
@@ -2769,6 +2819,18 @@ def centerpoint_phase(card):
             not np.isfinite(out).all() or out[..., 9].sum() == 0:
         fail(f"CenterPoint's batch output {out.shape}: not finite (B, 498, "
              f"12) rows with detections")
+    (over_k, valid_k), = keeps
+    keep = nms.nms_fixpoint(over_k, valid_k)
+    if not torch.equal(keep, nms.nms_fixpoint_loop(over_k, valid_k)):
+        fail("the NMS keep (nms_scan) differs from the fixpoint loop on "
+             "CenterPoint's rows")
+    scan_ms = cuda_ms(lambda: nms.nms_fixpoint(over_k, valid_k), 20)
+    scan_bound = bound(scan_bytes(*valid_k.shape), 0.0)[0]
+    print(f"2b: nms_scan on {tuple(valid_k.shape)} rows: {int(keep.sum())} "
+          f"of {int(valid_k.sum())} valid candidates kept, bit-equal to the "
+          f"fixpoint loop; {scan_ms:.4f} ms, bound {scan_bound:.4f} ms "
+          f"(bytes)")
+    del over_k, valid_k, keeps
     batch_ms = cuda_ms(lambda: det.predict_packed_batch(points, counts), 2,
                        reps=3)
     print(f"2b: CenterPoint predict_packed_batch {batch_ms:.2f} ms a batch "
@@ -2778,7 +2840,9 @@ def centerpoint_phase(card):
         "launches": k2_launches, "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound"][0], "bound_by": row["bound"][1],
         "detector_launches": {k: launches[k] for k in (
-            "emit", "fused_pfn2", "bev_scatter", "nms_overlap")}}}))
+            "emit", "fused_pfn2", "bev_scatter", "nms_overlap", "nms_scan")},
+        "nms_scan": {"rows": list(keep.shape), "ms": scan_ms,
+                     "bound_ms": scan_bound}}}))
     del det, points, counts
     torch.cuda.empty_cache()
     return row, launches
@@ -3475,9 +3539,9 @@ def single_sweep_phase(cfg, card, golden, clouds):
     total = {}
     for front, kw, kernels in (
             ("fused", {}, ("emit", "fused_pfn", "bev_scatter",
-                           "nms_overlap")),
+                           "nms_overlap", "nms_scan")),
             ("classic", {"fused_frontend": False},
-             ("emit", "pfn", "bev_scatter", "nms_overlap"))):
+             ("emit", "pfn", "bev_scatter", "nms_overlap", "nms_scan"))):
         det = Detector.from_checkpoint(cfg, CKPT, **kw)
         forward = build_forward_fn(det.model, cfg, **kw)
         model_fn = build_model_fn(det.model, cfg, **kw)
@@ -3696,7 +3760,7 @@ def scripts_phase(cfg, card, golden):
         torch.cuda.synchronize()
         launches["ablation"] = dict(_build.LAUNCHES)
         for name in ("emit", "fused_pfn", "bev_scatter", "nms_overlap",
-                     "assign"):
+                     "nms_scan", "assign"):
             if launches["ablation"][name] == 0:
                 fail(f"3j: kernel {name} did not launch in the ablation")
         for arm, r in ablation.items():
@@ -3746,7 +3810,8 @@ def scripts_phase(cfg, card, golden):
             del art, live
         torch.cuda.synchronize()
         launches["export"] = dict(_build.LAUNCHES)
-        for name in ("emit", "fused_pfn", "bev_scatter", "nms_overlap"):
+        for name in ("emit", "fused_pfn", "bev_scatter", "nms_overlap",
+                     "nms_scan"):
             if launches["export"][name] == 0:
                 fail(f"3j: kernel {name} did not launch serving the export")
         print(f"3j export: a 2-step full-size run (EMA, eval); the script "

@@ -53,7 +53,12 @@ launch once per call; with two cards, every kernel launches on
 ``cuda:1`` while ``cuda:0`` is current. The single-sweep entry points:
 ``pillarize_auto`` (K1 on a batch of one) bit-equal to the plain
 ``pillarize`` for every count form, and ``rotated_nms_pallas`` (K4) keeping
-the fixpoint NMS's set but for threshold-boundary pairs."""
+the fixpoint NMS's set but for threshold-boundary pairs. The NMS keep
+(``nms_scan``) is held bit for bit to the fixpoint loop at K from 1 to
+2,048 (past shared memory) and B of 1, 8 and 48, on random bits, chains
+and K4's matrices, one launch a call into memory that held 0xFF; and
+``Detector.postprocess`` (PointPillars and CenterPoint) makes no
+synchronising call."""
 
 import numpy as np
 import pytest
@@ -66,8 +71,8 @@ from tpu_pillars_torch import config as tconfig
 from tpu_pillars_torch.detector import Detector
 from tpu_pillars_torch.models.pointpillars import PointPillars
 from tpu_pillars_torch.ops import (
-    assign, bev, binning, emit, fused_pfn, iou, iou_tiled, nms_overlap, pfn,
-    sort, stream_pfn,
+    assign, bev, binning, emit, fused_pfn, iou, iou_tiled, nms, nms_overlap,
+    pfn, sort, stream_pfn,
 )
 from tpu_pillars_torch.ops.target_assigner import group_gt_by_class
 from tpu_pillars_torch.ops.voxelize import (
@@ -539,6 +544,102 @@ def test_overlap_kernel_writes_every_byte(dev, b, k, layout):
         assert (pair - 0.2).abs().max() < 1e-4
 
 
+def _scan_case(case, b, k, dev):
+    """(over, valid) for the NMS keep: "random", upper-triangle bits at a
+    density that varies by row (0.2% to 60%), 10% of the boxes invalid and
+    every fifth row from the second all invalid; "chain", each box
+    overlapping only its successor (the fixpoint needs K sweeps), the even
+    rows all valid, the odd rows with two invalid boxes inside the chain;
+    "boxes", K4's matrix of random boxes, all valid."""
+    g = torch.Generator(dev).manual_seed(1000 * k + b)
+    upper = torch.ones((k, k), dtype=torch.bool, device=dev).triu(1)
+    if case == "boxes":
+        boxes = torch.from_numpy(_boxes(np.random.default_rng(k + b), b, k,
+                                        span=4.0 + k / 64)).to(dev)
+        return (nms_overlap.overlap_matrix(boxes, 0.2),
+                torch.ones((b, k), dtype=torch.bool, device=dev))
+    if case == "random":
+        p = torch.tensor([0.002, 0.02, 0.2, 0.6], device=dev)[
+            torch.arange(b, device=dev) % 4]
+        over = (torch.rand((b, k, k), generator=g, device=dev)
+                < p[:, None, None]) & upper
+        valid = torch.rand((b, k), generator=g, device=dev) < 0.9
+        valid[1::5] = False
+        return over, valid
+    i = torch.arange(k - 1, device=dev)
+    over = torch.zeros((b, k, k), dtype=torch.bool, device=dev)
+    over[:, i, i + 1] = True
+    valid = torch.ones((b, k), dtype=torch.bool, device=dev)
+    valid[1::2, k // 3] = False
+    valid[1::2, k // 2] = False
+    return over, valid
+
+
+@pytest.mark.parametrize("case", ["random", "chain", "boxes"])
+@pytest.mark.parametrize("b", [1, 8, 48])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 36, 100, 200, 1000, 1024,
+                               2048])
+def test_nms_scan_bit_equal_to_the_loop(dev, case, b, k):
+    """The NMS keep op on the card is one ``nms_scan`` launch, into memory
+    that held 0xFF, bit-equal to the fixpoint loop (its plain version) on
+    the same tensors: K of 16-, 8-, 4- and 1-byte loads (1,024, 1,000, 36,
+    33), within a warp's word and past it, and 2,048, whose packed rows
+    outgrow shared memory and go through the global scratch. In a chain
+    the even rows keep every other box."""
+    over, valid = _scan_case(case, b, k, dev)
+    _poison((b, k), torch.uint8, 255, dev)
+    before = dict(_build.LAUNCHES)
+    keep = nms.nms_fixpoint(over, valid)
+    after = dict(_build.LAUNCHES)
+    assert after["nms_scan"] == before["nms_scan"] + 1
+    assert {n: c for n, c in after.items() if n != "nms_scan"} == \
+        {n: c for n, c in before.items() if n != "nms_scan"}
+    want = nms.nms_fixpoint_loop(over, valid)
+    torch.cuda.synchronize()
+    assert keep.shape == (b, k) and keep.dtype == torch.bool
+    assert (keep.view(torch.uint8) <= 1).all()
+    assert torch.equal(keep, want)
+    assert not keep[~valid].any()
+    if case == "chain":
+        alternate = torch.arange(k, device=dev) % 2 == 0
+        assert torch.equal(keep[0::2], alternate.expand(len(keep[0::2]), k))
+
+
+def test_postprocess_makes_no_synchronising_call(dev):
+    """``Detector.postprocess`` on card tensors, PointPillars and
+    CenterPoint, past a first call (which puts their constants on the
+    card), runs under ``torch.cuda.set_sync_debug_mode("error")``: nothing
+    in it waits for the card, K4 and ``nms_scan`` launch once each, and
+    the detections equal those of the first call."""
+    from torch_center_util import center_cloud, center_state_dict
+
+    rng = np.random.default_rng(2)
+    pts, ns = _cloud(rng, [3000, 1500])
+    ccfg = tconfig.tiny_center_config()
+    cpts = np.full((2, ccfg.max_points, 5), 1e6, np.float32)
+    for i, n in enumerate((3000, 1500)):
+        cpts[i, :n] = center_cloud(rng, ccfg, n)
+    for det, (p, n) in ((Detector(CFG, _random_state_dict(CFG, 5)),
+                         (pts, ns)),
+                        (Detector(ccfg, center_state_dict(ccfg, 5)),
+                         (cpts, ns))):
+        wire = det.wire(det.canvas(torch.from_numpy(p).to(dev),
+                                   torch.from_numpy(n).to(dev).long()))
+        want = det.postprocess(*wire)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = det.postprocess(*wire)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert _build.LAUNCHES["nms_overlap"] == 1
+        assert _build.LAUNCHES["nms_scan"] == 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert bool(got.valid.any())
+
+
 def test_wrappers_refuse_wrong_inputs(dev):
     gid = torch.zeros((1, 8), dtype=torch.int64, device=dev)
     pts = torch.zeros((1, 8, 4), device=dev)
@@ -546,6 +647,12 @@ def test_wrappers_refuse_wrong_inputs(dev):
         emit.emit_table(gid, pts, 4, 4, 16)
     with pytest.raises(ValueError):
         nms_overlap.overlap_matrix(torch.zeros((4, 7), device=dev), 0.2)
+    over = torch.zeros((2, 8, 8), dtype=torch.bool, device=dev)
+    valid = torch.ones((2, 8), dtype=torch.bool, device=dev)
+    for o, v in ((over[:, :, :4], valid), (over.to(torch.uint8), valid),
+                 (over, valid.float()), (over[:1], valid)):
+        with pytest.raises(ValueError):
+            nms.nms_fixpoint(o, v)
     feats = torch.zeros((5, 4, 9), device=dev)
     mask = torch.ones((5, 4), dtype=torch.bool, device=dev)
     w, b = torch.zeros((9, 8), device=dev), torch.zeros(8, device=dev)
@@ -902,6 +1009,8 @@ def _one_call_per_kernel(dev):
     boxes = torch.from_numpy(_boxes(np.random.default_rng(2), 2, 100,
                                     8.0)).to(dev)
     out["nms_overlap"] = (nms_overlap.overlap_matrix(boxes, 0.2),)
+    out["nms_scan"] = (nms.nms_fixpoint(out["nms_overlap"][0],
+                                        boxes[..., 3] > 1.0),)
     out["iou_tiled"] = (iou_tiled.rotated_iou_bev_tiled(boxes, boxes),)
     pts_raw, ns = _cloud(np.random.default_rng(3), [3000, 1000])
     pts_raw, ns = torch.from_numpy(pts_raw).to(dev), torch.from_numpy(ns).to(
@@ -972,7 +1081,7 @@ def test_detector_on_card_matches_cpu(dev):
     pts, ns = _cloud(np.random.default_rng(2), [3000, 1500])
     _build.reset_launches()
     got = Detector(CFG, sd).predict_packed_batch(pts, ns).cpu().numpy()
-    serving = ("emit", "fused_pfn", "bev_scatter", "nms_overlap")
+    serving = ("emit", "fused_pfn", "bev_scatter", "nms_overlap", "nms_scan")
     assert all(_build.LAUNCHES[n] == 1 for n in serving), _build.LAUNCHES
     want = Detector(CFG, sd, device="cpu").predict_packed_batch(
         pts, ns).numpy()
@@ -1026,7 +1135,7 @@ def test_classic_detector_on_card_matches_cpu(dev, use_pallas_pfn):
     assert _build.LAUNCHES["pfn"] == int(use_pallas_pfn)
     assert _build.LAUNCHES["fused_pfn"] == 0
     assert all(_build.LAUNCHES[n] == 1
-               for n in ("emit", "bev_scatter", "nms_overlap"))
+               for n in ("emit", "bev_scatter", "nms_overlap", "nms_scan"))
     want = Detector(CFG, sd, device="cpu", **kw).predict_packed_batch(
         pts, ns).numpy()
     np.testing.assert_array_equal(got[..., 9], want[..., 9])
@@ -1574,9 +1683,8 @@ def test_kernel_ops_equal_plain_versions(dev):
     tensors, launches its kernel once and equals the wrapper's plain
     version as the wrapper's own card test holds it (K1, K3 bit for bit;
     K2 bit for bit; K6 to 1e-5; K4 outside the threshold's rounding band);
-    the fixpoint op equals its loop on either device."""
-    from tpu_pillars_torch.ops import nms
-
+    the NMS keep op launches ``nms_scan`` once and equals its loop on
+    either device."""
     ops = torch.ops.tpu_pillars
 
     cfg, gid, pts = _sorted_centered("random", dev)
@@ -1626,6 +1734,7 @@ def test_kernel_ops_equal_plain_versions(dev):
         assert (pair - 0.2).abs().max() < 1e-4
     valid = torch.ones((2, 200), dtype=torch.bool, device=dev)
     keep = ops.nms_fixpoint(over, valid)
+    assert _build.LAUNCHES["nms_scan"] == 1
     assert torch.equal(keep, nms.nms_fixpoint_loop(over, valid))
     assert torch.equal(keep.cpu(), nms.nms_fixpoint(over.cpu(), valid.cpu()))
 
@@ -1665,7 +1774,7 @@ def test_exported_full_config_launches_kernels(dev, tmp_path):
     _build.reset_launches()
     got = art.predict_packed_batch(pts, ns)
     torch.cuda.synchronize()
-    serving = ("emit", "fused_pfn", "bev_scatter", "nms_overlap")
+    serving = ("emit", "fused_pfn", "bev_scatter", "nms_overlap", "nms_scan")
     assert all(_build.LAUNCHES[n] == 1 for n in serving), _build.LAUNCHES
     want = Detector(cfg, sd).predict_packed_batch(pts, ns)
     assert torch.equal(got, want)
@@ -1876,7 +1985,8 @@ def test_center_detector_on_card_matches_cpu(dev):
     _build.reset_launches()
     got = det.predict_packed_batch(pts, ns).cpu().numpy()
     assert all(_build.LAUNCHES[k] == 1 for k in (
-        "emit", "fused_pfn2", "bev_scatter", "nms_overlap")), _build.LAUNCHES
+        "emit", "fused_pfn2", "bev_scatter", "nms_overlap", "nms_scan")), \
+        _build.LAUNCHES
     want = cpu.predict_packed_batch(pts, ns).numpy()
     assert got.shape == want.shape == (2, cfg.max_detections, 12)
     np.testing.assert_array_equal(got[..., 9], want[..., 9])

@@ -1,7 +1,8 @@
 """How tpu_pillars_torch launches its kernels, checked on the CPU.
 
 * The device guard: every wrapper of the kernels in ``_build.KERNELS``
-  (K1-K11, and K9's sidecar) launches through ``_build.launch``, which
+  (K1-K11, the NMS keep ``nms_scan``, and K9's sidecar) launches through
+  ``_build.launch``, which
   enters ``torch.cuda.device`` of its input's device and passes that
   device's current stream. The card is stood in for by the ``meta`` device,
   a fake ``torch.cuda.device`` and ``current_stream``, and a fake kernel
@@ -9,15 +10,18 @@
   the CPU takes the kernel's path, so the wrappers run to their launches
   without a card. ``tests/test_torch_cuda.py`` launches on ``cuda:1``
   where a machine has two cards. K3's bf16 instances launch their own
-  entry points and count under their own names. K1, K2, K5, K6, K7, K8
-  and K11, one launch each and no other torch op than their
+  entry points and count under their own names. K1, K2, K5, K6, K7, K8,
+  K11 and the NMS keep, one launch each and no other torch op than their
   ``torch.empty`` allocations (a dispatch mode records every op), return
   their documented outputs there; K7 passes views of other layouts to its
   kernel as they are, with their strides. The wrappers of K1, K2, K3, K4
-  and K6 (and the NMS fixpoint) are thin calls of their ``tpu_pillars``
+  and K6 (and the NMS keep) are thin calls of their ``tpu_pillars``
   ops, whose fake (``meta``) implementation launches nothing: for those
   the launch checks call the op's CUDA implementation, and one more test
-  checks that each such wrapper dispatches its op and nothing else.
+  checks that each such wrapper dispatches its op and nothing else. The
+  NMS keep passes a global scratch exactly when a row's packed bits
+  outgrow a block's shared memory, and its counters ``nms.scan_rows`` and
+  ``nms.loop_rows`` count the rows by the path that served them.
 * K3's precondition: the ids that each caller of the BEV scatter passes
   (the fused and the classic serving front end, a training step) satisfy
   ``where(mask, pid, H*W)`` ascending, valid ids unique and in [0, H*W),
@@ -42,6 +46,7 @@ from tpu_pillars_torch.ops import (
 from tpu_pillars_torch.train.loop import synthetic_batches
 from tpu_pillars_torch.train.state import TrainConfig, create_train_state
 from tpu_pillars_torch.train.step import batch_to_device, make_train_step
+from tpu_pillars_torch.utils import profiling
 from tpu_pillars_torch.weights import params_from_flax
 
 CFG = tconfig.tiny_config()
@@ -109,6 +114,8 @@ def card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", fake.device)
     monkeypatch.setattr(torch.cuda, "current_stream", fake.current_stream)
     monkeypatch.setattr(_build, "library", fake.library)
+    # the shared memory a block may opt into on an H100
+    monkeypatch.setattr(nms, "_smem_bytes", lambda index: 232448)
     return fake
 
 
@@ -149,6 +156,8 @@ CALLS = {
         CFG),
     "iou_tiled": lambda: iou_tiled.rotated_iou_bev_tiled(_m((B, 40, 7)),
                                                          _m((B, 30, 7))),
+    "nms_scan": lambda: nms.nms_scan_cuda(_m((B, 40, 40), torch.bool),
+                                          _m((B, 40), torch.bool)),
 }
 # entry points each wrapper launches, the counted one last
 SYMBOLS = {"bev_gather": ["bev_row_ranges", "bev_gather"]}
@@ -215,16 +224,18 @@ OUTPUTS = {
                ((B, CFG.num_classes, 4), torch.int64)],
     "stream_pfn": [((B, CFG.grid_h, CFG.grid_w, C), torch.float32)],
     "iou_tiled": [((B, 40, 30), torch.float32)],
+    "nms_scan": [((B, 40), torch.bool)],
 }
 
 
 @pytest.mark.parametrize("kernel", sorted(OUTPUTS))
 def test_one_launch_wrappers_return_their_outputs(card, kernel):
-    """K1, K2, K5, K6, K7, K8 and K11 make one guarded call and run no
+    """K1, K2, K5, K6, K7, K8, K11 and the NMS keep (``nms_fixpoint``'s
+    CUDA implementation, ``nms_scan``) make one guarded call and run no
     other torch op than their allocations, so on ``meta`` they return their
     documented outputs (K1's table and meta, K2's features, int32 ids and
     f32 counts, K5's best_gt and gt_best_anchor int64, K7's IoU, K8's rank
-    and histogram)."""
+    and histogram, the bool keep mask)."""
     out = CALLS[kernel]()
     out = out if isinstance(out, tuple) else (out,)
     assert len(card.calls) == 1
@@ -316,6 +327,72 @@ def test_iou_tiled_reads_views_without_a_copy(card, layout):
     assert (p1, p2) == (b1.data_ptr(), b2.data_ptr())
     assert (batch, n, m, bi, bj) == (B if b1.dim() == 3 else 1, 40, 30, 40,
                                      30)
+
+
+@pytest.mark.parametrize("k,scratch", [(40, False), (1350, False),
+                                        (1351, True), (2048, True)])
+def test_nms_scan_stages_in_global_memory_past_shared(card, k, scratch):
+    """The NMS keep packs a row's K * ceil(K / 32) words (and the row's
+    suppressed set) in a block's shared memory up to Hopper's 227 KB, and
+    past it passes the kernel a (B, K, ceil(K / 32)) int32 scratch; one
+    launch either way, with (B, K) last."""
+    keep = nms.nms_scan_cuda(_m((B, k, k), torch.bool), _m((B, k),
+                                                            torch.bool))
+    (args,) = card.args
+    assert (args[3] is not None) == scratch
+    assert args[4:6] == (B, k)
+    assert tuple(keep.shape) == (B, k) and keep.dtype == torch.bool
+
+
+@pytest.mark.parametrize("over,valid", [
+    ((B, 40, 41), (B, 40)), ((B, 40), (B, 40)), ((1, 40, 40), (B, 40)),
+    ((B, 40, 40, 1), (B, 40))], ids=["wide", "flat", "short", "deep"])
+def test_nms_scan_refuses_wrong_shapes(card, over, valid):
+    """The NMS keep refuses an ``over`` that is not (B, K, K) for a
+    (B, K) ``valid`` before it launches: its kernel would read out of
+    bounds."""
+    with pytest.raises(ValueError, match="nms_fixpoint wants"):
+        nms.nms_scan_cuda(_m(over, torch.bool), _m(valid, torch.bool))
+    assert not card.calls
+
+
+@pytest.mark.parametrize("dtypes", [(torch.uint8, torch.bool),
+                                    (torch.float32, torch.bool),
+                                    (torch.bool, torch.uint8)],
+                         ids=["uint8 over", "float over", "uint8 valid"])
+def test_nms_scan_refuses_other_dtypes(card, dtypes):
+    """The NMS keep reads bool bytes: another dtype of ``over`` or
+    ``valid`` is refused before the launch."""
+    with pytest.raises(ValueError, match="nms_fixpoint wants"):
+        nms.nms_scan_cuda(_m((B, 40, 40), dtypes[0]), _m((B, 40), dtypes[1]))
+    assert not card.calls
+
+
+def test_nms_counters_count_the_path_taken(card):
+    """``nms.scan_rows`` counts the rows through the card's kernel,
+    ``nms.loop_rows`` the rows through the CPU's fixpoint loop, while
+    tracing is on and at no other time."""
+    over = torch.zeros((3, 8, 8), dtype=torch.bool)
+    over[:, 0, 1] = True
+    valid = torch.ones((3, 8), dtype=torch.bool)
+    profiling.disable()
+    profiling.reset()
+    try:
+        nms.nms_fixpoint(over, valid)
+        nms.nms_scan_cuda(_m((2, 8, 8), torch.bool), _m((2, 8), torch.bool))
+        assert profiling.summary()["counters"] == {}
+        profiling.enable()
+        keep = nms.nms_fixpoint(over, valid)
+        assert keep[:, 1].logical_not().all() and keep[:, 2:].all()
+        assert profiling.summary()["counters"] == {"nms.loop_rows": 3}
+        nms.nms_scan_cuda(_m((2, 8, 8), torch.bool), _m((2, 8), torch.bool))
+        nms.nms_scan_cuda(_m((5, 8, 8), torch.bool), _m((5, 8), torch.bool))
+        assert profiling.summary()["counters"] == {"nms.loop_rows": 3,
+                                                  "nms.scan_rows": 7}
+        assert len(card.calls) == 3
+    finally:
+        profiling.disable()
+        profiling.reset()
 
 
 def test_launch_refuses_tensors_on_two_devices(card):

@@ -17,7 +17,7 @@ value. Kernels allocate nothing: the Python wrappers allocate outputs with
 ``torch``.
 
 Each wrapper that ``torch.export`` must see through (K1, K2, K3, K4, K6,
-and the NMS fixpoint, which has no kernel) calls an op of the
+and the NMS keep, ``nms_scan``) calls an op of the
 ``tpu_pillars`` namespace made by :func:`kernel_op`: its CUDA
 implementation is the kernel's launch, its CPU implementation the plain
 version, and its fake gives the output shapes. An exported program names
@@ -52,7 +52,8 @@ EXTRA_FLAGS = {name: ["--fmad=false"] for name in (
     "fused_pfn", "nms_overlap", "assign", "pfn", "stream_pfn", "iou_tiled")}
 
 KERNELS = ("emit", "fused_pfn", "bev_scatter", "nms_overlap", "assign", "pfn",
-           "radix_sort", "binning", "bev_gather", "stream_pfn", "iou_tiled")
+           "radix_sort", "binning", "bev_gather", "stream_pfn", "iou_tiled",
+           "nms_scan")
 # K3's instances with a bf16 canvas (csrc/bev_scatter.cu), counted apart
 # from its f32 one, which counts as "bev_scatter", and K2's two-layer
 # instance (csrc/fused_pfn.cu), apart from its one-layer "fused_pfn"

@@ -18,7 +18,8 @@ The two-stage split is the live ``Detector``'s. Each kernel wrapper the
 stages reach calls an op of the ``tpu_pillars`` namespace
 (``_build.kernel_op``): K1 emit, K2 fused PFN, K3 BEV scatter (and its
 bf16 instances with ``dtype=torch.bfloat16``), K4 overlap matrix on the
-card, K6 on the classic front end, and the NMS fixpoint loop. The graph
+card, K6 on the classic front end, and the NMS keep (the ``nms_scan``
+kernel on the card, the fixpoint loop on the CPU). The graph
 names the ops and inlines neither the kernels nor their plain versions.
 So unlike the JAX artifact, which is self-contained StableHLO, this one
 needs the port's op library at load time: :func:`load_inference` imports

@@ -17,10 +17,10 @@ Per (sample, task), as the published ``CenterHead.predict`` decodes
   atan2(rot_sin, rot_cos), and the velocity (vx, vy).
 
 Then greedy rotated BEV NMS at ``nms_iou`` over every (sample, task) row in
-one call (``nms_impl``: K4 and the fixpoint on the card, the dense IoU on
-the CPU, as for PointPillars), and the first ``nms_post`` kept of each row
-in score order. A sample's detections are its tasks' rows one after the
-other: ``num_tasks * nms_post`` slots.
+one call (``nms_impl``: K4 and the ``nms_scan`` keep on the card, the
+dense IoU and the fixpoint loop on the CPU, as for PointPillars), and the
+first ``nms_post`` kept of each row in score order. A sample's detections
+are its tasks' rows one after the other: ``num_tasks * nms_post`` slots.
 
 While tracing is on, the counters ``center.candidates`` (cells over the
 threshold and inside the limit, summed over tasks, before the ``nms_pre``

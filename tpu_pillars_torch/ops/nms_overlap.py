@@ -16,9 +16,12 @@ threshold.
 :func:`rotated_nms_overlap` permutes candidates into class-blocked order
 first (exact when classes cannot overlap — the class-aware shift of
 ``ops.postprocess`` guarantees that unless a decoded box out-spans the
-shift, which the ``class_gap`` guard checks), then runs the fixpoint sweep
-of ``ops.nms``. :func:`rotated_nms_pallas` is its one-sample form, with the
-JAX function's name and signature.
+shift, which the ``class_gap`` guard checks), then the greedy keep of
+``ops.nms.nms_fixpoint`` over the matrix: on the card the scan kernel
+``csrc/nms_scan.cu``, one launch after K4's and no read back to the host,
+so the call returns before the card has run it; on the CPU the fixpoint
+loop. :func:`rotated_nms_pallas` is its one-sample form, with the JAX
+function's name and signature.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ exact two-stage alternative, as in the JAX package not the default.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -87,12 +88,19 @@ def top_k_two_stage(x, k: int, rows: int = 64):
     return v2, torch.gather(flat_i, -1, sel)
 
 
+@functools.lru_cache(maxsize=None)
+def _class_thresholds(thresholds: tuple, dtype, device) -> torch.Tensor:
+    """The per-class score thresholds on ``device``, made once: a copy to
+    the card from the host would wait for the card's queue."""
+    return torch.tensor(thresholds, dtype=dtype, device=device)
+
+
 def _top_candidates(own_logits, anchor_cls, config: PillarsConfig):
     """Own-class logits (B, A) -> thresholded scores, static top-K."""
     scores = torch.sigmoid(own_logits)
-    thresholds = torch.tensor([c.score_threshold for c in config.classes],
-                              dtype=own_logits.dtype,
-                              device=own_logits.device)[anchor_cls]
+    thresholds = _class_thresholds(
+        tuple(c.score_threshold for c in config.classes), own_logits.dtype,
+        own_logits.device)[anchor_cls]
     masked = torch.where(scores >= thresholds, scores, -1.0)
     top_scores, top_idx = top_k_stable(masked, config.pre_nms_top_k)
     return top_scores, top_idx, top_scores > 0.0
